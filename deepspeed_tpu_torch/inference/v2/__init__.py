@@ -1,0 +1,5 @@
+"""Ragged serving engine of the PyTorch port (counterpart of
+``deepspeed_tpu/inference/v2``): ``engine_v2`` (InferenceEngineV2,
+ContinuousBatcher), ``model_runner`` (the ragged forward and the fused
+decode loop), ``kernels`` (the CUDA paged-attention kernels and their plain
+versions) and ``ragged`` (allocator, batch metadata, paged KV cache)."""

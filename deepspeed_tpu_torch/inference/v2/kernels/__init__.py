@@ -1,0 +1,11 @@
+from .ragged_ops import (
+    decode_attend_dense,
+    decode_paged_attention,
+    paged_kv_append,
+    ragged_paged_attention,
+    ragged_paged_attention_reference,
+)
+
+__all__ = ["decode_attend_dense", "decode_paged_attention",
+           "paged_kv_append", "ragged_paged_attention",
+           "ragged_paged_attention_reference"]

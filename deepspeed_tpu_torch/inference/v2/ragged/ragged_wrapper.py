@@ -1,0 +1,172 @@
+"""Ragged batch metadata (counterpart of
+``deepspeed_tpu/inference/v2/ragged/ragged_wrapper.py``; reference:
+inference/v2/ragged/ragged_wrapper.py:31 ``RaggedBatchWrapper``).
+
+Builds the per-forward metadata for a mixed prefill/decode batch, padded to
+the bucket's budgets (``max_tokens``, ``max_seqs``, ``max_blocks_per_seq``)
+in the same packed int32 layout as the JAX package, so both engines see the
+same batches. The engine ships the packed vector to the device in ONE copy
+per forward; the runner slices it into views there.
+
+Fields (flat-token layout; sequence s's query tokens sit contiguously at
+flat indices [cu_q_lens[s], cu_q_lens[s+1])):
+  tokens        [max_tokens]              flat input ids (padded 0)
+  page_of_token [max_tokens]              LAYER-RELATIVE cache page per token
+                                          (pad -> num_blocks sentinel, which
+                                          the runner routes to the trash page)
+  off_of_token  [max_tokens]              row within the page
+  seq_of_token  [max_tokens]              owning sequence row (pad -> max_seqs-1)
+  pos_of_token  [max_tokens]              absolute position in its sequence
+  q_offset      [max_seqs]                first flat index of each seq's queries
+  q_len         [max_seqs]                query tokens this forward
+  ctx_len       [max_seqs]                seen + in-flight tokens (= kv_lens)
+  cu_q_lens     [max_seqs+1]              exclusive prefix sum of q_len; rows
+                                          past n_seqs repeat the total
+  block_table   [max_seqs, max_blocks]    layer-relative KV page ids per seq
+  logit_idx     [max_seqs]                flat index of each seq's last token
+
+INVARIANT: every scheduled sequence contributes >= 1 query token and padded
+rows are strictly trailing (``insert_sequence`` enforces it).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from .sequence_descriptor import DSSequenceDescriptor
+
+
+def pack_layout(max_tokens: int, max_seqs: int,
+                max_blocks: int) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+    """Static (offset, shape) layout of the single packed int32 metadata
+    vector shipped host→device per forward: one copy instead of ~12."""
+    fields = [
+        ("tokens", (max_tokens,)),
+        ("page_of_token", (max_tokens,)),
+        ("off_of_token", (max_tokens,)),
+        ("seq_of_token", (max_tokens,)),
+        ("pos_of_token", (max_tokens,)),
+        ("q_offset", (max_seqs,)),
+        ("q_len", (max_seqs,)),
+        ("ctx_len", (max_seqs,)),
+        ("logit_idx", (max_seqs,)),
+        ("cu_q_lens", (max_seqs + 1,)),
+        ("block_table", (max_seqs, max_blocks)),
+    ]
+    layout = {}
+    off = 0
+    for name, shape in fields:
+        n = int(np.prod(shape))
+        layout[name] = (off, shape)
+        off += n
+    layout["_total"] = (off, ())
+    return layout
+
+
+@dataclasses.dataclass
+class RaggedBatch:
+    tokens: np.ndarray
+    page_of_token: np.ndarray
+    off_of_token: np.ndarray
+    seq_of_token: np.ndarray
+    pos_of_token: np.ndarray
+    q_offset: np.ndarray
+    q_len: np.ndarray
+    ctx_len: np.ndarray
+    logit_idx: np.ndarray
+    cu_q_lens: np.ndarray
+    block_table: np.ndarray
+    n_tokens: int
+    n_seqs: int
+    uids: List[int]
+
+    def pack(self) -> np.ndarray:
+        """Flatten all metadata into ONE int32 vector (see pack_layout)."""
+        return np.concatenate([
+            self.tokens, self.page_of_token, self.off_of_token,
+            self.seq_of_token, self.pos_of_token, self.q_offset, self.q_len,
+            self.ctx_len, self.logit_idx, self.cu_q_lens,
+            self.block_table.reshape(-1),
+        ]).astype(np.int32)
+
+
+class RaggedBatchWrapper:
+    def __init__(self, max_tokens: int, max_seqs: int, max_ctx: int,
+                 block_size: int, pad_page: int = 1 << 30):
+        self.max_tokens = max_tokens
+        self.max_seqs = max_seqs
+        self.max_ctx = max_ctx
+        self.block_size = block_size
+        self.max_blocks = -(-max_ctx // block_size)
+        #: layer-relative page sentinel padded tokens carry (= pool
+        #: num_blocks; the runner maps it to the shared trash page)
+        self.pad_page = pad_page
+        self.clear()
+
+    def clear(self):
+        self._entries: List[Tuple[DSSequenceDescriptor, List[int]]] = []
+        self._n_tokens = 0
+
+    def can_fit(self, n_new_tokens: int) -> bool:
+        return (self._n_tokens + n_new_tokens <= self.max_tokens and
+                len(self._entries) < self.max_seqs)
+
+    def insert_sequence(self, seq: DSSequenceDescriptor, new_tokens: List[int]):
+        if not new_tokens:
+            # the no-interior-zero cu_q_lens invariant (see module docstring)
+            raise ValueError("every scheduled sequence needs >= 1 token")
+        if not self.can_fit(len(new_tokens)):
+            raise ValueError("batch budget exceeded")
+        seq.in_flight_tokens = len(new_tokens)
+        self._entries.append((seq, list(new_tokens)))
+        self._n_tokens += len(new_tokens)
+
+    def finalize(self) -> RaggedBatch:
+        """Build the padded host arrays."""
+        mt, ms, bs = self.max_tokens, self.max_seqs, self.block_size
+        tokens = np.zeros(mt, np.int32)
+        page_of = np.full(mt, self.pad_page, np.int32)
+        off_of = np.zeros(mt, np.int32)
+        seq_of = np.full(mt, ms - 1, np.int32)
+        pos_of = np.zeros(mt, np.int32)
+        q_offset = np.zeros(ms, np.int32)
+        q_len = np.zeros(ms, np.int32)
+        ctx_len = np.zeros(ms, np.int32)
+        block_table = np.zeros((ms, self.max_blocks), np.int32)
+        logit_idx = np.zeros(ms, np.int32)
+        cu = np.zeros(ms + 1, np.int32)
+        uids = []
+
+        cursor = 0
+        for row, (seq, new_toks) in enumerate(self._entries):
+            n = len(new_toks)
+            total = seq.seen_tokens + n
+            assert total <= self.max_ctx, \
+                f"sequence length {total} exceeds max_ctx {self.max_ctx}"
+            assert len(seq.blocks) * bs >= total, "KV blocks not allocated"
+            uids.append(seq.uid)
+            tokens[cursor:cursor + n] = new_toks
+            seq_of[cursor:cursor + n] = row
+            positions = np.arange(seq.seen_tokens, total, dtype=np.int32)
+            pos_of[cursor:cursor + n] = positions
+            blocks = np.asarray(seq.blocks, np.int64)
+            page_of[cursor:cursor + n] = blocks[positions // bs].astype(np.int32)
+            off_of[cursor:cursor + n] = (positions % bs).astype(np.int32)
+            q_offset[row] = cursor
+            q_len[row] = n
+            ctx_len[row] = total
+            block_table[row, :len(blocks)] = blocks.astype(np.int32)
+            logit_idx[row] = cursor + n - 1
+            cursor += n
+            cu[row + 1] = cursor
+        cu[len(self._entries) + 1:] = cursor    # trailing rows repeat total
+
+        return RaggedBatch(tokens=tokens, page_of_token=page_of,
+                           off_of_token=off_of, seq_of_token=seq_of,
+                           pos_of_token=pos_of, q_offset=q_offset, q_len=q_len,
+                           ctx_len=ctx_len, block_table=block_table,
+                           logit_idx=logit_idx, cu_q_lens=cu,
+                           n_tokens=cursor, n_seqs=len(self._entries),
+                           uids=uids)

@@ -8,8 +8,11 @@ setup(
     version="0.1.0",
     description="TPU-native large-scale training & inference framework "
                 "(DeepSpeed capabilities on JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
-    package_data={"deepspeed_tpu": ["csrc/*.cpp"]},
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch",
+                                    "deepspeed_tpu_torch.*"]),
+    package_data={"deepspeed_tpu": ["csrc/*.cpp"],
+                  "deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.5",
