@@ -21,16 +21,38 @@ non-zero before the last line is printed:
      kernels' launch counters must rise from 0, every token must be in
      range; then one ``put`` with ``attn_impl="paged"`` and one with
      ``"gather"`` on the same batch must give finite, agreeing logits;
-  5. time each kernel, its plain version and one PyTorch library call
-     (``scaled_dot_product_attention`` on the gathered dense K/V, timing
-     only) at the main path's shapes, with the L2 cache flushed before
-     every timed launch, beside the card's bound; print the ``kernels``
-     JSON line;
-  6. print ``{"ok": true, "device": {...}}`` as the last line.
+  5. time each serving kernel, its plain version and one PyTorch library
+     call (``scaled_dot_product_attention`` on the gathered dense K/V,
+     timing only) at the main path's shapes, with the L2 cache flushed
+     before every timed launch, beside the card's bound;
+  6. hold each training kernel against its plain version: flash attention
+     forward (O, LSE), dQ and dK/dV at B 4, S 2048, H 32 (8 KV heads
+     repeated), hd 128, bf16, causal, and on float32 edge batches (S 1,
+     100, 257; causal and full; hd 64 and 128; G 1 and 4) and the same
+     tails in bf16; the fused RMSNorm+matmul at M 8192, D 4096, F
+     4096/1024/14336 in bf16 and at M 100, F 1000 in float32 and bf16;
+     each elementwise against a stated limit;
+  7. the training path: ``initialize`` → ``DeepSpeedEngine.train_batch`` on
+     ``TransformerConfig.llama3_8b()`` widths cut to 4 layers with remat
+     (random float32 masters from a seeded generator, bench.py's ds_config:
+     micro-batch 4, AdamW, clipping 1.0, ZeRO 0, bf16), 4 x 2048 tokens:
+     first one step's loss and gradient norm against the same step with
+     ``attn_impl="xla", fused_rmsnorm="off"``, then 2 untimed and 5 timed
+     steps with the training kernels' counters set to 0 just before the
+     timed steps and read just after; the loss must fall; one more step
+     under ``torch.profiler`` gives device time by kernel and the
+     device's busy share;
+  8. time each training kernel beside its bound, its plain version and one
+     PyTorch call (SDPA forward and backward; ``F.rms_norm`` plus
+     ``torch.matmul``); print the ``kernels`` JSON line (serving and
+     training kernels);
+  9. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,8 +75,50 @@ BF16_ATOL = 1e-5
 # in summation order over <= ~500 keys
 F32_ATOL = 1e-4
 
+# training kernels, bf16 at the main shapes. Flash attention rounds P and
+# dS to bf16 (relative error <= 2**-9 per term) before its second
+# products, so an output may move by 2**-9 of the sum of its terms'
+# magnitudes (|P|@|V|, |dS|@|K|, |dS|^T@|Q|, |P|^T@|dO|); the limit allows
+# twice that on top of the two-ulp output rounding (BF16_RTOL)
+FLASH_BF16_TERMS = 2.0 ** -8
+# float32 edge batches: the same float32 products over <= 257 terms in
+# another order, |error| <= 257 * 2**-24 of the sum of the terms'
+# magnitudes < 2**-15, plus exp/log rounding
+F32_TERMS = 2.0 ** -15
+F32_RTOL = 1e-5
+# fused RMSNorm+matmul in bf16: h = bf16(bf16(x*bf16(r))*scale) is the
+# same on both sides unless the float32 normaliser r (summed in another
+# order, relative error <= D*2**-24) lands on the other side of a bf16
+# rounding edge; rows that close to an edge may move each h by two bf16
+# ulps (2**-6 of the terms), the others only by the float32 summation
+# order of the product (D*2**-24 of the terms)
+K4_EDGE_TERMS = 2.0 ** -6
+
 K6_REPLACES = "deepspeed_tpu/inference/v2/kernels/ragged_ops.py:65"
 K7_REPLACES = "deepspeed_tpu/inference/v2/kernels/ragged_ops.py:381"
+TRAIN_REPLACES = {
+    "flash_attention_fwd":
+        "deepspeed_tpu/ops/transformer/flash_attention.py:77",
+    "flash_attention_bwd_dq":
+        "deepspeed_tpu/ops/transformer/flash_attention.py:171",
+    "flash_attention_bwd_dkv":
+        "deepspeed_tpu/ops/transformer/flash_attention.py:208",
+    "rmsnorm_matmul": "deepspeed_tpu/kernels/fused_collective_matmul.py:289",
+}
+TRAIN_SOURCES = {
+    "flash_attention_fwd": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd_dq":
+        "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv":
+        "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+    "rmsnorm_matmul": "deepspeed_tpu_torch/csrc/rmsnorm_matmul.cu",
+}
+# the training main path's kernel shapes (llama3-8B widths)
+FA_MAIN = dict(B=4, S=2048, H=32, KV=8, hd=128)
+K4_MAIN = dict(M=8192, D=4096, Fs=(4096, 1024, 14336))
+TRAIN_LAYERS = 4
+WARMUP_STEPS = 2
+TIMED_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -498,6 +562,531 @@ def phase_timing(torch, ops, shapes, launches, errs):
     return kernels
 
 
+# --------------------------------------------------------------------- #
+# training kernels
+# --------------------------------------------------------------------- #
+def _compare_limit(torch, name, k, p, limit, why):
+    """|k - p| <= limit elementwise (a tensor); returns the max abs error."""
+    check(bool(torch.isfinite(k).all()), f"{name}: non-finite kernel output")
+    diff = (k.float() - p.float()).abs()
+    err = float(diff.max())
+    worst = float((diff / limit).max())
+    log(f"check {name}: max_abs_err {err:.3e}, worst err/limit {worst:.3f} "
+        f"(limit {why})")
+    check(worst <= 1.0, f"{name}: error exceeds its limit by {worst:.3f}x")
+    return err
+
+
+def flash_inputs(torch, gen, B, S, H, KV, hd, dtype):
+    """q, do [B, S, H, hd]; k, v with KV heads repeated to H, as the model
+    hands them to the kernels."""
+    def rnd(h):
+        return torch.randn(B, S, h, hd, generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(dtype)
+
+    q, k, v, do = rnd(H), rnd(KV), rnd(KV), rnd(H)
+    k = k.repeat_interleave(H // KV, dim=2).contiguous()
+    v = v.repeat_interleave(H // KV, dim=2).contiguous()
+    return q, k, v, do
+
+
+def check_flash(torch, fa, tag, q, k, v, do, causal, terms, rtol, atol):
+    """K1, K2 and K3 against their plain versions on one batch. Each
+    backward kernel gets the plain forward's LSE and delta, so each check
+    sees one kernel. → max abs error by kernel name."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    p, ds = fa.probs_and_ds(q, k, v, do, lse_ref, delta, causal, scale)
+
+    def t(x):
+        return x.float().abs()
+
+    errs = {}
+    bound = torch.einsum("bhqk,bkhd->bqhd", p.abs(), t(v))
+    errs["flash_attention_fwd"] = _compare_limit(
+        torch, f"flash_attention_fwd O {tag}", o, o_ref,
+        atol + rtol * t(o_ref) + terms * bound,
+        f"{atol:.0e} + {rtol:.3g}*|ref| + {terms:.3g}*|P|@|V|")
+    _compare_limit(torch, f"flash_attention_fwd LSE {tag}", lse, lse_ref,
+                   1e-4 + 1e-5 * lse_ref.abs(), "1e-4 + 1e-5*|ref|, float32")
+    del o, lse
+    dq_ref = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta,
+                                                 causal, scale)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    bound = torch.einsum("bhqk,bkhd->bqhd", ds.abs(), t(k))
+    errs["flash_attention_bwd_dq"] = _compare_limit(
+        torch, f"flash_attention_bwd_dq {tag}", dq, dq_ref,
+        atol + rtol * t(dq_ref) + terms * bound,
+        f"{atol:.0e} + {rtol:.3g}*|ref| + {terms:.3g}*|dS|@|K|")
+    del dq, dq_ref
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse_ref, delta, causal, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta, causal,
+                                        scale)
+    bound = torch.einsum("bhqk,bqhd->bkhd", ds.abs(), t(q))
+    err_k = _compare_limit(
+        torch, f"flash_attention_bwd_dkv dK {tag}", dk, dk_ref,
+        atol + rtol * t(dk_ref) + terms * bound,
+        f"{atol:.0e} + {rtol:.3g}*|ref| + {terms:.3g}*|dS|^T@|Q|")
+    bound = torch.einsum("bhqk,bqhd->bkhd", p.abs(), t(do))
+    err_v = _compare_limit(
+        torch, f"flash_attention_bwd_dkv dV {tag}", dv, dv_ref,
+        atol + rtol * t(dv_ref) + terms * bound,
+        f"{atol:.0e} + {rtol:.3g}*|ref| + {terms:.3g}*|P|^T@|dO|")
+    errs["flash_attention_bwd_dkv"] = max(err_k, err_v)
+    return errs
+
+
+def check_rmsnorm_matmul(torch, fcm, tag, x, scale, w, eps):
+    """K4 against its plain version, with a per-row limit (see
+    K4_EDGE_TERMS). → max abs error."""
+    ref = fcm.rmsnorm_matmul_reference(x, scale, w, eps)
+    out = fcm.rmsnorm_matmul_fwd(x, scale, w, eps)
+    D = x.shape[1]
+    r = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps)
+    h = (x * r.to(x.dtype)) * scale
+    terms = h.float().abs() @ w.float().abs()
+    sum_rel = D * 2.0 ** -24
+    if x.dtype == torch.bfloat16:
+        rb = r.bfloat16().float()
+        ulp = torch.exp2(torch.floor(torch.log2(rb)) - 7)
+        frac = (r - rb).abs() / ulp                     # 0 .. 0.5
+        # the kernel's normaliser may differ by sum_rel/2 relative
+        near = frac > 0.5 - (sum_rel / 2 + 2.0 ** -22) / 2.0 ** -8
+        coef = torch.where(near, K4_EDGE_TERMS, sum_rel)
+        log(f"  {tag}: {int(near.sum())} of {x.shape[0]} rows within reach "
+            f"of a bf16 rounding edge of the normaliser")
+        limit = BF16_ATOL + BF16_RTOL * ref.float().abs() + coef * terms
+        why = (f"{BF16_ATOL:.0e} + {BF16_RTOL:.3g}*|ref| + ({sum_rel:.3g}, "
+               f"or {K4_EDGE_TERMS:.3g} on edge rows)*|h|@|w|")
+    else:
+        coef = sum_rel + 2.0 ** -20
+        limit = 1e-5 + F32_RTOL * ref.abs() + coef * terms
+        why = f"1e-5 + {F32_RTOL:.0e}*|ref| + {coef:.3g}*|h|@|w|, float32"
+    return _compare_limit(torch, f"rmsnorm_matmul {tag}", out, ref, limit,
+                          why)
+
+
+def phase_train_kernel_checks(torch):
+    """K1-K4 against their plain versions on the card. → the main-shape
+    errors by kernel name."""
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    m = FA_MAIN
+    q, k, v, do = flash_inputs(torch, gen, m["B"], m["S"], m["H"], m["KV"],
+                               m["hd"], torch.bfloat16)
+    errs = check_flash(torch, fa, "bf16 main shapes causal", q, k, v, do,
+                       True, FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for S in (1, 100, 257):
+        for causal in (True, False):
+            for hd in (64, 128):
+                for G in (1, 4):
+                    q, k, v, do = flash_inputs(torch, gen, 2, S, 2 * G, 2,
+                                               hd, torch.float32)
+                    check_flash(torch, fa, f"f32 S={S} causal={causal} "
+                                f"hd={hd} G={G}", q, k, v, do, causal,
+                                F32_TERMS, F32_RTOL, 1e-5)
+    # the same tails on the tensor-core path: S not a multiple of the
+    # 64-row tiles, in bf16
+    for S in (100, 257):
+        for causal in (True, False):
+            for hd in (64, 128):
+                q, k, v, do = flash_inputs(torch, gen, 2, S, 8, 2, hd,
+                                           torch.bfloat16)
+                check_flash(torch, fa, f"bf16 S={S} causal={causal} hd={hd} "
+                            f"G=4", q, k, v, do, causal, FLASH_BF16_TERMS,
+                            BF16_RTOL, BF16_ATOL)
+    # the autograd Function (GQA repeat, delta, both backward kernels)
+    # against autograd of the plain attention, float32
+    from deepspeed_tpu_torch.models.transformer import _xla_attention
+
+    qkv = [torch.randn(2, 257, h, 128, generator=gen, device=DEVICE)
+           .requires_grad_() for h in (8, 2, 2)]
+    do = torch.randn(2, 257, 8, 128, generator=gen, device=DEVICE)
+    out = fa.flash_attention(*qkv, causal=True)
+    grads = torch.autograd.grad(out, qkv, do)
+    ref = _xla_attention(*qkv, causal=True)
+    ref_grads = torch.autograd.grad(ref, qkv, do)
+    for name, a, b in zip(("O", "dQ", "dK", "dV"), (out, *grads),
+                          (ref, *ref_grads)):
+        b = b.detach()
+        _compare_limit(torch, f"flash_attention autograd {name} f32 GQA",
+                       a.detach(), b, 1e-4 + 1e-4 * b.abs(),
+                       "1e-4 + 1e-4*|ref|, float32 against autograd of the "
+                       "plain attention")
+    del qkv, do, out, grads, ref, ref_grads
+
+    M, D = K4_MAIN["M"], K4_MAIN["D"]
+    x = torch.randn(M, D, generator=gen, device=DEVICE).bfloat16()
+    scale = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)
+             ).bfloat16()
+    for F in K4_MAIN["Fs"]:
+        w = (torch.randn(D, F, generator=gen, device=DEVICE) / math.sqrt(D)
+             ).bfloat16()
+        err = check_rmsnorm_matmul(torch, fcm, f"bf16 M={M} D={D} F={F}", x,
+                                   scale, w, 1e-5)
+        errs["rmsnorm_matmul"] = max(errs.get("rmsnorm_matmul", 0.0), err)
+    del x, w
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = torch.randn(100, D, generator=gen, device=DEVICE).to(dtype)
+        scale = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)
+                 ).to(dtype)
+        w = (torch.randn(D, 1000, generator=gen, device=DEVICE)
+             / math.sqrt(D)).to(dtype)
+        check_rmsnorm_matmul(torch, fcm, f"{tag} M=100 D={D} F=1000", x,
+                             scale, w, 1e-5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return errs
+
+
+# --------------------------------------------------------------------- #
+# training main path
+# --------------------------------------------------------------------- #
+def _train_counters():
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "rmsnorm_matmul": fcm.rmsnorm_matmul_fwd}
+
+
+def _loss_and_grad_norm(torch, engine, batch):
+    """One micro-step's loss and global gradient norm, no update."""
+    engine._zero_grads()
+    loss = float(engine._loss_and_backward(batch))
+    norm = float(torch.stack([p.grad.float().square().sum()
+                              for p in engine.params.values()]).sum().sqrt())
+    engine._zero_grads()
+    return loss, norm
+
+
+def phase_train_main_path(torch):
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import CausalLM, TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              num_layers=TRAIN_LAYERS, remat=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = CausalLM(cfg, init_params(cfg, gen, torch.float32, DEVICE),
+                     trainable=True)
+    torch.cuda.synchronize()
+    log(f"train model: llama3_8b widths, {cfg.num_layers} layers, remat, "
+        f"{model.num_params() / 1e9:.3f} B params float32, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds_config = {                           # bench.py's, one device
+        "train_micro_batch_size_per_gpu": 4,
+        "optimizer": {"type": "AdamW",
+                      "params": {"lr": 3e-4, "weight_decay": 0.1}},
+        "gradient_clipping": 1.0,
+        "zero_optimization": {"stage": 0},
+        "bf16": {"enabled": True},
+    }
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=ds_config, device=DEVICE)
+    seq = 2048
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(engine.train_batch_size(), seq))).to(
+        DEVICE)}
+    tokens_per_step = engine.train_batch_size() * seq
+
+    # the same step through the kernels and through the plain composition
+    loss_k, norm_k = _loss_and_grad_norm(torch, engine, batch)
+    model.config = dataclasses.replace(cfg, attn_impl="xla",
+                                       fused_rmsnorm="off")
+    loss_x, norm_x = _loss_and_grad_norm(torch, engine, batch)
+    model.config = cfg
+    rel_loss = abs(loss_k - loss_x) / abs(loss_x)
+    rel_norm = abs(norm_k - norm_x) / abs(norm_x)
+    # bf16 activations (8 significant bits) through 4 layers; the two
+    # paths round at different places (P, dS and the fused h in the
+    # kernels; probabilities and h in the plain composition)
+    log(f"path check: loss {loss_k:.6f} (kernels) vs {loss_x:.6f} (xla/off),"
+        f" rel {rel_loss:.3e} (tol 1e-2); grad norm {norm_k:.6f} vs "
+        f"{norm_x:.6f}, rel {rel_norm:.3e} (tol 5e-2)")
+    check(rel_loss <= 1e-2, f"path check: losses differ by {rel_loss}")
+    check(rel_norm <= 5e-2, f"path check: grad norms differ by {rel_norm}")
+    torch.cuda.empty_cache()
+
+    counters = _train_counters()
+    losses = []
+    for i in range(WARMUP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        log(f"warm-up step {i}: loss {losses[-1]:.6f}, "
+            f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"timed step {i}: loss {loss:.6f}, {times[-1]:.4f} s")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        check(n > 0, f"training path never launched {name}")
+    check(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    timed = losses[WARMUP_STEPS:]
+    check(timed[-1] < timed[0], f"loss did not fall over the timed steps: "
+          f"{timed}")
+    srt = sorted(times)
+    med = srt[len(srt) // 2]
+    # the JAX bench's analytic flops (bench.py:360-363): 6N + lm_head per
+    # token from flops_per_token, plus 3 x 12*L*D*S attention flops
+    attn = 12 * cfg.num_layers * cfg.hidden_size * seq
+    flops_per_token = model.flops_per_token() + 3 * attn
+    tflops = flops_per_token * tokens_per_step / med / 1e12
+    per_step = {n: c / TIMED_STEPS for n, c in launches.items()}
+    training = {
+        "layers": cfg.num_layers, "seq": seq,
+        "batch": engine.train_batch_size(), "tokens_per_step":
+        tokens_per_step, "losses": losses,
+        "step_s": {"median": med, "min": srt[0], "max": srt[-1]},
+        "tokens_per_s": tokens_per_step / med,
+        "achieved_tflops": tflops,
+        "bf16_peak_share": tflops * 1e12 / BF16_FLOPS,
+        "flops_per_token": flops_per_token,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches_timed_run": launches, "launches_per_step": per_step,
+        "path_check": {"loss_kernels": loss_k, "loss_xla": loss_x,
+                       "grad_norm_kernels": norm_k, "grad_norm_xla": norm_x},
+    }
+    log(f"training: median step {med:.4f} s [{srt[0]:.4f}, {srt[-1]:.4f}] "
+        f"over {TIMED_STEPS} steps; {tokens_per_step / med:.1f} tokens/s; "
+        f"{tflops:.1f} TFLOP/s achieved (analytic bench.py flops), "
+        f"{100 * tflops * 1e12 / BF16_FLOPS:.1f}% of the 989 TFLOP/s dense "
+        f"bf16 peak (NVIDIA H100 SXM data sheet); peak memory "
+        f"{peak / 1e9:.2f} GB; launches per step {per_step}")
+    training["profile"] = profile_step(torch, engine, batch, med)
+    del engine, model, batch
+    torch.cuda.empty_cache()
+    return launches, training
+
+
+_KERNEL_GROUPS = (            # kernel-name substrings → what they are
+    ("K4 rmsnorm_matmul", ("rmsnorm_matmul_kernel",)),
+    ("K1 flash forward", ("flash_fwd_kernel",)),
+    ("K2 flash dQ", ("flash_bwd_dq_kernel",)),
+    ("K3 flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("cuBLAS GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+    ("PyTorch elementwise and reductions", ("at::native::",)),
+)
+
+
+def profile_step(torch, engine, batch, step_s):
+    """One more ``train_batch`` under ``torch.profiler``: device time by
+    kernel, grouped, and the device's busy share of the step's wall time
+    (the union of the device events' intervals; its idle share is the
+    rest). CUPTI's "Command Buffer Full" records are host-side stalls of a
+    full launch queue, not device work, and are counted apart. CUDA events
+    around the engine's ``_apply_update`` split off the update (unscale,
+    clip, optimizer) from the forward and backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    apply_update = engine._apply_update
+    marks = []
+
+    def timed_update(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply_update(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+
+    engine._apply_update = timed_update
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    engine._apply_update = apply_update
+    update_ms = marks[0][0].elapsed_time(marks[0][1])
+    by_name, spans, stalls = {}, [], 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name == "Command Buffer Full":
+            stalls += 1
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    busy /= 1e3
+    check(spans, "the profiler recorded no device events")
+    groups = {}
+    for name, (ms, _) in by_name.items():
+        group = next((g for g, subs in _KERNEL_GROUPS
+                      if any(sub in name for sub in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    total = sum(groups.values())
+    log(f"profiled step: wall {1e3 * wall:.1f} ms (timed median "
+        f"{1e3 * step_s:.1f} ms), device busy {busy:.1f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}% of wall, idle "
+        f"{100 - 100 * busy / (1e3 * wall):.1f}%); {len(spans)} device "
+        f"events, {stalls} launch-queue-full stalls; the update (unscale, "
+        f"clip, AdamW) {update_ms:.1f} ms of it")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {group}: {ms:.2f} ms ({100 * ms / max(total, 1e-9):.1f}% "
+            f"of device time)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, n) in top:
+        log(f"  {ms:8.2f} ms  x{n:<4d} {name[:110]}")
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "update_ms": update_ms,
+            "device_events": len(spans), "queue_full_stalls": stalls,
+            "groups_ms": groups,
+            "top": [{"ms": ms, "count": n, "name": name[:160]}
+                    for name, (ms, n) in top]}
+
+
+# --------------------------------------------------------------------- #
+# training kernel timing
+# --------------------------------------------------------------------- #
+def flash_work(B, S, H, hd, causal, products, outputs, stats_in):
+    """(bytes, flops): q, k, v (+ dO) in and ``outputs`` tensors out once
+    in bf16, ``stats_in`` float32 row statistics [B, H, S]; 2*hd flops per
+    visible (query, key) pair, head and product."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    ins = 3 + (1 if products > 2 else 0)
+    nbytes = (ins + outputs) * B * S * H * hd * 2 + stats_in * B * H * S * 4
+    return nbytes, 2 * hd * products * B * H * pairs
+
+
+def phase_train_timing(torch, launches, errs):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    m = FA_MAIN
+    B, S, H, hd = m["B"], m["S"], m["H"], m["hd"]
+    q, k, v, do = flash_inputs(torch, gen, B, S, H, m["KV"], hd,
+                               torch.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True), 10)
+    del out, qg, kg, vg
+    shape = {"B": B, "S": S, "H": H, "KV": m["KV"], "hd": hd,
+             "causal": True, "dtype": "bf16"}
+    specs = [
+        ("flash_attention_fwd",
+         lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+         lambda: fa.flash_attention_fwd_reference(q, k, v, True, scale),
+         lib_fwd, flash_work(B, S, H, hd, True, 2, 1, 0)),
+        ("flash_attention_bwd_dq",
+         lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                           scale),
+         lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                     True, scale),
+         lib_bwd, flash_work(B, S, H, hd, True, 3, 1, 2)),
+        ("flash_attention_bwd_dkv",
+         lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True,
+                                            scale),
+         lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                      delta, True, scale),
+         lib_bwd, flash_work(B, S, H, hd, True, 4, 2, 2)),
+    ]
+    kernels = []
+    for name, kern, plain, lib, (nbytes, flops) in specs:
+        ms = cuda_ms(torch, kern, 10)
+        plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        kernels.append({
+            "name": name, "route": "cuda", "source": TRAIN_SOURCES[name],
+            "replaces": TRAIN_REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "library": ("scaled_dot_product_attention forward"
+                        if name == "flash_attention_fwd" else
+                        "scaled_dot_product_attention backward (dQ, dK, dV "
+                        "together)"),
+            "shape": shape, "bytes": nbytes, "flops": flops})
+        log(f"time {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"plain {plain_ms:.3f} ms, library {lib:.4f} ms)")
+        torch.cuda.empty_cache()
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    M, D = K4_MAIN["M"], K4_MAIN["D"]
+    x = torch.randn(M, D, generator=gen, device=DEVICE).bfloat16()
+    sc = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).bfloat16()
+    by_shape = []
+    for Fd in K4_MAIN["Fs"]:
+        w = (torch.randn(D, Fd, generator=gen, device=DEVICE) / math.sqrt(D)
+             ).bfloat16()
+        ms = cuda_ms(torch, lambda: fcm.rmsnorm_matmul_fwd(x, sc, w, 1e-5),
+                     10)
+        plain_ms = cuda_ms(torch, lambda: fcm.rmsnorm_matmul_reference(
+            x, sc, w, 1e-5), 10)
+        lib = cuda_ms(torch, lambda: torch.matmul(
+            F.rms_norm(x, (D,), sc, 1e-5), w), 10)
+        nbytes = 2 * (M * D + D + D * Fd + M * Fd)
+        flops = 2 * M * D * Fd
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        by_shape.append({"M": M, "D": D, "F": Fd, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bytes": nbytes, "flops": flops})
+        log(f"time rmsnorm_matmul F={Fd}: {ms:.4f} ms (bound {b_ms:.4f} ms "
+            f"by {b_by}, plain {plain_ms:.4f} ms, F.rms_norm + matmul "
+            f"{lib:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s)")
+    main = by_shape[-1]                        # gate/up, F 14336
+    kernels.append({
+        "name": "rmsnorm_matmul", "route": "cuda",
+        "source": TRAIN_SOURCES["rmsnorm_matmul"],
+        "replaces": TRAIN_REPLACES["rmsnorm_matmul"],
+        "launches": launches["rmsnorm_matmul"],
+        "max_abs_err": errs["rmsnorm_matmul"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "F.rms_norm + torch.matmul",
+        "shape": {"M": M, "D": D, "F": main["F"], "dtype": "bf16"},
+        "by_shape": by_shape, "bytes": main["bytes"],
+        "flops": main["flops"]})
+    torch.cuda.synchronize()
+    return kernels
+
+
 def main_shapes():
     """The shapes the main path hands the kernels (llama3_8b widths, the
     default engine: page 64, max_ctx 2048 → 32 pages per sequence, a pool
@@ -535,15 +1124,21 @@ def main():
         phase_build(torch)
         shapes = main_shapes()
         errs = phase_kernel_checks(torch, ops, shapes)
+        train_errs = phase_train_kernel_checks(torch)
         launches, serving, model = phase_main_path(torch, ops)
         del model
         torch.cuda.empty_cache()
         kernels = phase_timing(torch, ops, shapes, launches, errs)
+        del shapes                       # the serving timing inputs
+        torch.cuda.empty_cache()
+        train_launches, training = phase_train_main_path(torch)
+        kernels += phase_train_timing(torch, train_launches, train_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,40 @@
 """DeepSpeed-TPU's PyTorch/CUDA port.
 
 A second package beside ``deepspeed_tpu`` (the JAX reference, which it
-never imports). This slice serves the Llama-family ``CausalLM`` through
-``InferenceEngineV2.generate`` on an NVIDIA H100, with hand-written CUDA
-paged-attention kernels under ``csrc/``. Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+never imports). It serves the Llama-family ``CausalLM`` through
+``InferenceEngineV2.generate`` and trains it through :func:`initialize` →
+``DeepSpeedEngine.train_batch`` on an NVIDIA H100, with hand-written CUDA
+kernels under ``csrc/``. Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
+from typing import Any, Dict, Optional, Union
+
 from .inference.v2.engine_v2 import (
     InferenceEngineV2,
     RaggedInferenceEngineConfig,
 )
 from .models.transformer import CausalLM, TransformerConfig
+from .runtime.config import DeepSpeedConfig
+from .runtime.engine import DeepSpeedEngine
+
+
+def initialize(model: Any = None, model_parameters: Optional[Dict] = None,
+               config: Union[str, Dict, DeepSpeedConfig, None] = None,
+               lr_scheduler: Any = None, device=None):
+    """Create a training engine (the JAX ``deepspeed_tpu.initialize``).
+
+    ``model`` is a ``CausalLM`` (or anything with
+    ``loss_fn(params, batch, rng)``, or such a callable);
+    ``model_parameters`` a dict of dotted name → tensor, by default the
+    model's own parameters. ``device=None`` means CUDA, which must be
+    present. → ``(engine, optimizer, None, lr_scheduler)``."""
+    if not isinstance(config, DeepSpeedConfig):
+        config = DeepSpeedConfig(config)
+    engine = DeepSpeedEngine(model, config, model_parameters=model_parameters,
+                             lr_scheduler=lr_scheduler, device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
 
 __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig",
-           "TransformerConfig", "CausalLM"]
+           "TransformerConfig", "CausalLM", "DeepSpeedConfig",
+           "DeepSpeedEngine", "initialize"]

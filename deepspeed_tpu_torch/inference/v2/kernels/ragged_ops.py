@@ -30,9 +30,10 @@ from typing import Optional
 import torch
 
 from ....accelerator import get_accelerator
+from ....ops.op_builder.builder import (DTYPE_CODES, check_launch,
+                                        kernel_function)
 
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_G = 8
 
@@ -47,13 +48,7 @@ _ARGTYPES = {
 def _launcher(name: str):
     """The ``<name>_launch`` C function of ``csrc/<name>.cu``, built on
     first use."""
-    from ....ops.op_builder.builder import load_kernels
-
-    fn = getattr(load_kernels()[name], f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+    return kernel_function(name, f"{name}_launch", _ARGTYPES[name])
 
 
 def _check_shapes(q, kv_pages, kv_lens, page_table, num_kv_heads,
@@ -93,7 +88,7 @@ def _check_kernel_inputs(name, q, kv_pages, ints, G, hd):
         if t.device != dev:
             raise ValueError(f"{name}: all inputs must be on {dev}, "
                              f"got one on {t.device}")
-    if q.dtype not in _DTYPE_CODES or kv_pages.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or kv_pages.dtype != q.dtype:
         raise ValueError(f"{name}: q and kv_pages must both be float32 or "
                          f"bfloat16, got {q.dtype} and {kv_pages.dtype}")
     for t in ints:
@@ -111,11 +106,6 @@ def _check_kernel_inputs(name, q, kv_pages, ints, G, hd):
     for t in (q, kv_pages):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: q and kv_pages must be 16-byte aligned")
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 # --------------------------------------------------------------------- #
@@ -156,8 +146,8 @@ def ragged_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_table.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
         q.shape[0], H, KV, hd, ps, S, NB, float(scale),
-        _DTYPE_CODES[q.dtype], get_accelerator().current_stream(q.device).cuda_stream)
-    _raise_on_error("ragged_paged_attention", err)
+        DTYPE_CODES[q.dtype], get_accelerator().current_stream(q.device).cuda_stream)
+    check_launch("ragged_paged_attention", err)
     ragged_paged_attention.launches += 1
     return out
 
@@ -233,9 +223,9 @@ def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     err = _launcher("decode_paged_attention")(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), S, H, KV, hd, ps, NB,
-        float(scale), _DTYPE_CODES[q.dtype],
+        float(scale), DTYPE_CODES[q.dtype],
         get_accelerator().current_stream(q.device).cuda_stream)
-    _raise_on_error("decode_paged_attention", err)
+    check_launch("decode_paged_attention", err)
     decode_paged_attention.launches += 1
     return out
 

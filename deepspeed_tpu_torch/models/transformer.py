@@ -1,6 +1,7 @@
 """Llama-family causal LM for the PyTorch port (counterpart of
 ``deepspeed_tpu/models/transformer.py``: ``TransformerConfig``, ``init_params``,
-``rms_norm`` and the stacked-layer parameter tree).
+``rms_norm``, the stacked-layer parameter tree, and the training side:
+RoPE, the ``attention`` dispatch, ``forward`` and ``lm_loss``).
 
 The parameters keep the JAX package's names and layout so that a JAX tree
 converts by name with no reshuffle (``models/convert.py``):
@@ -11,19 +12,33 @@ converts by name with no reshuffle (``models/convert.py``):
     ``embed.embedding``, ``layers.q_proj.kernel``, ``norm_f.scale``,
     ``lm_head.kernel``, ...
 
-This slice serves the dense ``TransformerConfig`` path only; MoE fields are
-kept so configs round-trip, but ``CausalLM`` refuses ``num_experts > 1``.
+The dense ``TransformerConfig`` path only; MoE fields are kept so configs
+round-trip, but ``CausalLM`` refuses ``num_experts > 1``.
+
+``forward`` walks the layers in a Python loop over one ``torch.unbind`` of
+each stacked tensor per call, so the backward builds each stacked gradient
+with one ``stack`` instead of a zero-filled ``[L, ...]`` tensor per layer.
+The two kernel knobs resolve on both devices alike, so the CPU tests walk
+the dispatch the card walks (the JAX package resolves them to XLA off the
+TPU): ``attn_impl="auto"`` is flash attention when ``use_flash`` and
+S >= 128, ``fused_rmsnorm="auto"`` is on; ``"xla"``/``"off"`` select the
+unfused composition. On CUDA tensors those run the hand-written kernels,
+on CPU tensors their plain versions.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import get_accelerator
+from ..kernels.fused_collective_matmul import rmsnorm_matmul
+from ..ops.transformer.flash_attention import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +58,12 @@ class TransformerConfig:
     remat: bool = False
     remat_policy: str = "nothing_saveable"
     use_flash: bool = True
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"         # auto | flash | xla
+    #: the JAX kernel's tile sizes; kept so configs round-trip, but the
+    #: CUDA kernels choose their own tiles (64 x 64) and ignore these
     flash_block_q: int = 256
     flash_block_k: int = 512
-    fused_rmsnorm: str = "auto"
+    fused_rmsnorm: str = "auto"     # auto (= on) | on | off
     num_experts: int = 1
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -142,21 +159,177 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
 
+def rope_tables(seq_len: int, head_dim: int, theta: float,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) ``[S, hd/2]`` float32, the JAX ``rope_tables``."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    freqs = torch.outer(pos, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x ``[B, S, H, hd]``: rotate the (first half, second half) pairs."""
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[None, :, None, :].to(x.dtype)
+    sin = sin[None, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _xla_attention(q, k, v, causal: bool = True):
+    """The JAX package's plain attention ``[B, S, H, hd]``: scores in the
+    input dtype, softmax in float32, masked scores at the dtype's min."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(q, k, v, cfg: TransformerConfig, causal: bool = True):
+    """Flash attention (K1-K3) or the plain composition, by
+    ``cfg.attn_impl``; ``"auto"`` is flash when ``use_flash`` and
+    S >= 128, on either device."""
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "flash" if cfg.use_flash and q.shape[1] >= 128 else "xla"
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal)
+    if impl == "xla":
+        return _xla_attention(q, k, v, causal=causal)
+    raise NotImplementedError(f"attn_impl={impl!r} is not ported (ring and "
+                              f"ulysses: ROADMAP M9)")
+
+
+def _fused_rmsnorm_active(cfg: TransformerConfig) -> bool:
+    mode = cfg.fused_rmsnorm
+    if mode in ("auto", "on", True):
+        return True
+    if mode in ("off", False):
+        return False
+    raise ValueError(f"fused_rmsnorm must be auto|on|off, got {mode!r}")
+
+
+def _layer(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig, cos, sin,
+           fused: bool):
+    """One decoder layer; ``lp`` maps ``q_proj.kernel``, ... to this
+    layer's slices."""
+    B, S, _ = x.shape
+    hd, eps = cfg.head_dim, cfg.norm_eps
+
+    def project(h_or_x, name, n_heads, norm_scale=None):
+        if norm_scale is None:
+            y = h_or_x @ lp[f"{name}.kernel"]
+        else:
+            y = rmsnorm_matmul(h_or_x, norm_scale, lp[f"{name}.kernel"], eps)
+        bias = lp.get(f"{name}.bias")
+        if bias is not None:
+            y = y + bias
+        return y.view(B, S, n_heads, hd)
+
+    if fused:
+        ns = lp["attn_norm.scale"]
+        q = project(x, "q_proj", cfg.num_heads, ns)
+        k = project(x, "k_proj", cfg.num_kv_heads, ns)
+        v = project(x, "v_proj", cfg.num_kv_heads, ns)
+    else:
+        h = rms_norm(x, lp["attn_norm.scale"], eps)
+        q = project(h, "q_proj", cfg.num_heads)
+        k = project(h, "k_proj", cfg.num_kv_heads)
+        v = project(h, "v_proj", cfg.num_kv_heads)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = attention(q, k, v, cfg, causal=True)
+    x = x + o.reshape(B, S, -1) @ lp["o_proj.kernel"]
+    if fused:
+        ns = lp["mlp_norm.scale"]
+        gate = F.silu(rmsnorm_matmul(x, ns, lp["gate_proj.kernel"], eps))
+        up = rmsnorm_matmul(x, ns, lp["up_proj.kernel"], eps)
+    else:
+        h = rms_norm(x, lp["mlp_norm.scale"], eps)
+        gate = F.silu(h @ lp["gate_proj.kernel"])
+        up = h @ lp["up_proj.kernel"]
+    return x + (gate * up) @ lp["down_proj.kernel"]
+
+
+def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """tokens ``[B, S]`` → logits ``[B, S, V]`` in the params' dtype.
+
+    ``params`` maps the dotted names of :func:`param_shapes` to tensors
+    (the engine passes bf16 copies made inside autograd). ``cfg.remat``
+    recomputes each layer in the backward (``torch.utils.checkpoint``),
+    the ``"nothing_saveable"`` policy; other policies are not ported."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP M9)")
+    if cfg.remat and cfg.remat_policy != "nothing_saveable":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported; only "
+            f"'nothing_saveable' (ROADMAP Queue 3)")
+    S = tokens.shape[1]
+    x = F.embedding(tokens, params["embed.embedding"])
+    cos, sin = rope_tables(S, cfg.head_dim, cfg.rope_theta, device=x.device)
+    fused = _fused_rmsnorm_active(cfg)
+    per_layer = {name[len("layers."):]: torch.unbind(t, 0)
+                 for name, t in params.items() if name.startswith("layers.")}
+    for layer in range(cfg.num_layers):
+        lp = {name: ts[layer] for name, ts in per_layer.items()}
+        if cfg.remat:
+            x = checkpoint(_layer, x, lp, cfg, cos, sin, fused,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, lp, cfg, cos, sin, fused)
+    x = rms_norm(x, params["norm_f.scale"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed.embedding"].t()
+    return x @ params["lm_head.kernel"]
+
+
+def lm_loss(params: Dict[str, torch.Tensor], batch: Any,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Causal LM loss, float32: predict ``input_ids`` shifted by one.
+
+    ``batch`` is ``{"input_ids": [B, S]}`` (+ optional ``"labels"`` with
+    -100 ignored) or the token tensor itself; without labels the last
+    position is padded with -100. The mean runs over valid tokens, with
+    ``max(count, 1)``."""
+    tokens = batch["input_ids"] if isinstance(batch, dict) else batch
+    labels = batch.get("labels") if isinstance(batch, dict) else None
+    logits = forward(params, tokens, cfg)
+    if labels is None:
+        labels = F.pad(tokens[:, 1:], (0, 1), value=-100)
+    valid = labels >= 0
+    total = F.cross_entropy(logits.float().flatten(0, 1),
+                            torch.where(valid, labels, -100).flatten().long(),
+                            ignore_index=-100, reduction="sum")
+    return total / valid.sum().clamp(min=1)
+
+
 class _Node(nn.Module):
     """A named level of the parameter tree (``layers``, ``q_proj``, ...)."""
 
 
 class CausalLM(nn.Module):
     """Holds the stacked parameters under the JAX names; the serving
-    forward is ``inference/v2/model_runner.ragged_forward``.
+    forward is ``inference/v2/model_runner.ragged_forward``, the training
+    one :func:`forward` through :meth:`loss_fn`.
 
     ``state`` is a dict of dotted name → tensor (from :func:`init_params`
     or ``models.convert.params_from_numpy``); its tensors are used as they
-    are, without a copy. Parameters do not require grad: this slice only
-    serves."""
+    are, without a copy. Parameters require grad only with
+    ``trainable=True`` (serving keeps them frozen)."""
 
     def __init__(self, cfg: TransformerConfig,
-                 state: Dict[str, torch.Tensor]):
+                 state: Dict[str, torch.Tensor], trainable: bool = False):
         super().__init__()
         self.config = cfg
         expected = param_shapes(cfg)
@@ -175,7 +348,24 @@ class CausalLM(nn.Module):
                 if not hasattr(node, part):
                     node.add_module(part, _Node())
                 node = getattr(node, part)
-            node.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+            node.register_parameter(leaf, nn.Parameter(
+                t, requires_grad=trainable))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def loss_fn(self, params: Dict[str, torch.Tensor], batch: Any,
+                rng=None) -> torch.Tensor:
+        """``lm_loss`` on ``params`` (the engine's compute copies);
+        ``rng`` is accepted for the JAX signature and unused."""
+        return lm_loss(params, batch, self.config)
+
+    def flops_per_token(self) -> float:
+        """~6N flops/token for training (fwd+bwd), N = non-embedding
+        params, plus the lm_head (the JAX ``flops_per_token``)."""
+        cfg = self.config
+        D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+        per_layer = 2 * D * (cfg.num_heads + 2 * cfg.num_kv_heads) \
+            * cfg.head_dim + 2 * cfg.num_heads * cfg.head_dim * D \
+            + 3 * 2 * D * Fd
+        return 3 * (L * per_layer + 2 * D * cfg.vocab_size)

@@ -26,12 +26,17 @@ import subprocess
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 from ...accelerator import get_accelerator
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+
+#: the kernels' element-type codes (``enum DType`` in ``csrc/paged_common.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -148,3 +153,21 @@ def load_kernels(device=None) -> Dict[str, ctypes.CDLL]:
     if _LIBS is None:
         _LIBS = get_builder().load(device)
     return _LIBS
+
+
+def kernel_function(lib: str, fn: str, argtypes: List):
+    """The ``extern "C"`` launcher ``fn`` of ``csrc/<lib>.cu`` with its
+    ctypes signature declared (``restype`` int: the launch's
+    ``cudaError_t``). Builds the libraries on first use."""
+    f = getattr(load_kernels()[lib], fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and ``torch.cuda.synchronize()`` would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -1,0 +1,246 @@
+"""DeepSpeedEngine for the PyTorch port (counterpart of
+``deepspeed_tpu/runtime/engine.py``): single-device training, ZeRO stage 0.
+
+The engine holds float32 master parameters (``self.params``, a dict of
+dotted name → leaf tensor that requires grad) and an optimizer over them.
+Each micro-batch casts the masters to the compute dtype inside autograd
+(bf16 under ``bf16.enabled``), as the JAX engine casts inside
+``jax.grad``, so the gradients reach the masters in float32.
+
+``train_batch`` runs the JAX fused step: the global batch is split into
+``[gas, micro]``, the micro-batches' gradients are summed in float32 and
+divided by ``gas``, then ``_apply_update`` in the reference's order:
+unscale → clip by ``clip/(norm+1e-6)`` → ``where(isfinite(g), g, 0)`` →
+optimizer update → skip the update on overflow (dynamic loss scaler only;
+the masters and the optimizer state stay as they were, and the step is
+counted in ``skipped_steps``). ``forward``/``backward``/``step`` are the
+imperative path with the same update at the accumulation boundary;
+``eval_batch`` is the loss under ``no_grad``.
+
+Updates are in place (the JAX engine donates its state instead). When the
+model's parameters are already float32 on the engine's device, the masters
+share their storage, so the model sees the trained values. Checkpoints are
+not ported yet (ROADMAP M4 remainder, M5).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..accelerator import get_accelerator
+from ..utils.logging import logger
+from .config import DeepSpeedConfig
+from .fp16.loss_scaler import create_loss_scaler
+from .lr_schedules import get_schedule_fn
+from .optimizer import build_optimizer
+
+
+def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    sq = [g.float().square().sum() for g in grads.values()]
+    return torch.stack(sq).sum().sqrt()
+
+
+class DeepSpeedEngine:
+    def __init__(self, model: Any, config: DeepSpeedConfig,
+                 model_parameters: Optional[Dict[str, torch.Tensor]] = None,
+                 lr_scheduler: Any = None, device=None):
+        self.config = config
+        self.device = get_accelerator().resolve_device(device)
+        self.module = model
+        self.loss_fn = self._resolve_loss_fn(model)
+        self.compute_dtype = config.dtype
+        self.lr_scheduler = lr_scheduler
+
+        named = model_parameters
+        if named is None:
+            if not hasattr(model, "named_parameters"):
+                raise ValueError("model_parameters (a dict of name → tensor) "
+                                 "is required")
+            named = dict(model.named_parameters())
+        self.params: Dict[str, torch.Tensor] = {
+            name: t.detach().to(self.device, torch.float32).requires_grad_()
+            for name, t in named.items()}
+
+        self._schedule_fn = self._resolve_schedule()
+        self.optimizer = self._resolve_optimizer()
+        self.optimizer.init(self.params)
+        self.loss_scaler = create_loss_scaler(config.fp16, self.compute_dtype)
+        self.scaler_state = self.loss_scaler.init()
+
+        self.global_steps = 0
+        self.skipped_steps = 0
+        self.micro_steps = 0
+        logger.info(f"engine ready: device={self.device} "
+                    f"dtype={self.compute_dtype} "
+                    f"batch={config.train_batch_size} "
+                    f"micro={config.train_micro_batch_size_per_gpu} "
+                    f"gas={config.gradient_accumulation_steps}")
+
+    # ------------------------------------------------------------------ #
+    # Resolution helpers
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _resolve_loss_fn(model) -> Callable:
+        """``model.loss_fn(params, batch, rng)`` or a callable
+        ``f(params, batch, rng) -> loss``."""
+        if hasattr(model, "loss_fn"):
+            return model.loss_fn
+        if callable(model):
+            return model
+        raise TypeError(f"cannot derive a loss function from {type(model)}")
+
+    def _resolve_schedule(self) -> Callable[[int], float]:
+        cfg = self.config
+        base_lr = cfg.optimizer.params.get("lr", 1e-3) if cfg.optimizer \
+            else 1e-3
+        if cfg.scheduler and cfg.scheduler.type:
+            return get_schedule_fn(cfg.scheduler.type, cfg.scheduler.params,
+                                   base_lr=base_lr)
+        return lambda step: base_lr
+
+    def _resolve_optimizer(self):
+        cfg = self.config.optimizer
+        if cfg is None:
+            return build_optimizer("adam", {}, self._schedule_fn)
+        return build_optimizer(cfg.type, dict(cfg.params), self._schedule_fn)
+
+    # ------------------------------------------------------------------ #
+    # Introspection (reference names)
+    # ------------------------------------------------------------------ #
+    def train_batch_size(self) -> int:
+        return self.config.train_batch_size
+
+    def gradient_accumulation_steps(self) -> int:
+        return self.config.gradient_accumulation_steps
+
+    def get_lr(self):
+        return [float(self._schedule_fn(self.global_steps))]
+
+    def get_loss_scale(self) -> float:
+        return float(self.scaler_state.scale)
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        gas = self.gradient_accumulation_steps()
+        return self.micro_steps % gas == 0 and self.micro_steps > 0
+
+    # ------------------------------------------------------------------ #
+    # Core math
+    # ------------------------------------------------------------------ #
+    def _to_device(self, batch):
+        if isinstance(batch, dict):
+            return {k: v.to(self.device) for k, v in batch.items()}
+        return batch.to(self.device)
+
+    def _compute_params(self) -> Dict[str, torch.Tensor]:
+        """The masters cast to the compute dtype, inside autograd."""
+        return {name: p.to(self.compute_dtype)
+                for name, p in self.params.items()}
+
+    def _loss_and_backward(self, batch) -> torch.Tensor:
+        """One micro-batch: cast → forward → scaled backward; the float32
+        gradients add into each master's ``.grad``. → the loss, float32."""
+        loss = self.loss_fn(self._compute_params(), batch, None)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss = loss.float()
+        self.loss_scaler.scale_loss(loss, self.scaler_state).backward()
+        return loss.detach()
+
+    def _grads(self) -> Dict[str, torch.Tensor]:
+        return {name: p.grad if p.grad is not None else torch.zeros_like(p)
+                for name, p in self.params.items()}
+
+    def _zero_grads(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    def _apply_update(self, grads: Dict[str, torch.Tensor],
+                      grad_norm_scale: Optional[float] = None) -> None:
+        """Unscale, clip, zero non-finite values, update, and skip the
+        update on overflow (dynamic scaler only), in the reference's
+        order; ``grads`` are modified in place."""
+        self.loss_scaler.unscale_grads(grads, self.scaler_state)
+        if grad_norm_scale is not None:
+            for g in grads.values():
+                g.mul_(grad_norm_scale)
+        overflow = self.loss_scaler.check_overflow(grads) \
+            if self.loss_scaler.dynamic else False
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            scale = torch.clamp(clip / (_global_norm(grads) + 1e-6), max=1.0)
+            for g in grads.values():
+                g.mul_(scale)
+        for g in grads.values():
+            torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
+        if not overflow:
+            self.optimizer.step(self.params, grads)
+        self.scaler_state = self.loss_scaler.update(self.scaler_state,
+                                                    overflow)
+        if overflow:
+            self.skipped_steps += 1
+        else:
+            self.global_steps += 1
+
+    # ------------------------------------------------------------------ #
+    # Fused path
+    # ------------------------------------------------------------------ #
+    def train_batch(self, batch) -> torch.Tensor:
+        """One optimizer step over a global batch whose leading dim is
+        ``train_batch_size``; with gradient accumulation it is split into
+        ``gas`` micro-batches. → the mean micro-batch loss (float32)."""
+        gas = self.gradient_accumulation_steps()
+        batch = self._to_device(batch)
+        self._zero_grads()
+        if gas == 1:
+            mean_loss = self._loss_and_backward(batch)
+        else:
+            def micro(i):
+                if isinstance(batch, dict):
+                    return {k: v.reshape(gas, -1, *v.shape[1:])[i]
+                            for k, v in batch.items()}
+                return batch.reshape(gas, -1, *batch.shape[1:])[i]
+
+            losses = [self._loss_and_backward(micro(i)) for i in range(gas)]
+            mean_loss = torch.stack(losses).mean()
+        grads = self._grads()
+        if gas > 1:
+            for g in grads.values():
+                g.div_(gas)
+        self._apply_update(grads)
+        self._zero_grads()
+        self.micro_steps += gas
+        return mean_loss
+
+    # ------------------------------------------------------------------ #
+    # Imperative path (reference API shape)
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def forward(self, batch) -> torch.Tensor:
+        """Loss-only forward (eval); for training use backward()/step()."""
+        out = self.loss_fn(self._compute_params(), self._to_device(batch),
+                           None)
+        return out[0] if isinstance(out, tuple) else out
+
+    __call__ = forward
+
+    def backward(self, batch) -> torch.Tensor:
+        """Forward and backward of one micro-batch; its float32 gradients
+        add to those of the accumulation window. Like the JAX engine (and
+        unlike the reference), it takes the micro-batch, not a loss.
+        → the micro-batch loss."""
+        loss = self._loss_and_backward(self._to_device(batch))
+        self.micro_steps += 1
+        return loss
+
+    def step(self) -> None:
+        """Apply the update at the accumulation boundary (else a no-op),
+        the accumulated sum scaled by 1/gas after unscaling."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        grads = self._grads()
+        self._apply_update(grads,
+                           grad_norm_scale=1.0 / self.gradient_accumulation_steps())
+        self._zero_grads()
+
+    def eval_batch(self, batch) -> torch.Tensor:
+        return self.forward(batch)
