@@ -42,11 +42,29 @@ non-zero before the last line is printed:
      timed steps and read just after; the loss must fall; one more step
      under ``torch.profiler`` gives device time by kernel and the
      device's busy share;
-  8. time each training kernel beside its bound, its plain version and one
+  8. hold each optimizer kernel against its plain version, bit for bit:
+     K5 (``adam_w_mode`` on and off), K13, K14 and K15 at every leaf shape
+     of the 4-layer training model and at 1, 7, 1000003 and (3, 5, 129)
+     elements, weight decay on and off, over 3 successive steps;
+  9. the training path again with ``FusedAdam`` (K5): its first loss
+     equal to the AdamW run's bit for bit, the later ones within
+     ``FUSED_LOSS_RTOL``; step time, tokens/s, TFLOP/s and the update's
+     device time beside the AdamW run's;
+ 10. ``FusedLamb``, ``FusedLion``, ``FusedAdagrad`` engines on the same
+     model, one at a time, 2 steps each: the first loss equal to
+     FusedAdam's, finite losses, their kernel's counter risen from 0;
+ 11. checkpoint round trip at ``CKPT_LAYERS`` layer(s) of llama3-8B width:
+     2 FusedAdam steps, ``save_checkpoint``, a fresh engine
+     ``load_checkpoint``, 2 more steps bitwise equal to the first engine's
+     uninterrupted steps 3-4; the directory read back with the port's
+     ``load_universal``, then removed;
+ 12. time each training kernel beside its bound, its plain version and one
      PyTorch call (SDPA forward and backward; ``F.rms_norm`` plus
-     ``torch.matmul``); print the ``kernels`` JSON line (serving and
-     training kernels);
-  9. print ``{"ok": true, "device": {...}}`` as the last line.
+     ``torch.matmul``), and each optimizer kernel over every leaf of the
+     4-layer model (``torch.optim.AdamW(fused=True)`` and
+     ``torch.optim.Adagrad`` as the library calls of K5 and K15); print the
+     ``kernels`` JSON line (serving, training and optimizer kernels);
+ 13. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -119,6 +137,41 @@ K4_MAIN = dict(M=8192, D=4096, Fs=(4096, 1024, 14336))
 TRAIN_LAYERS = 4
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
+
+# optimizer kernels (K5, K13-K15). Each kernel rounds every product, sum,
+# quotient and square root once, in its plain version's order (the __f*_rn
+# intrinsics, which nvcc never contracts into an FMA), and the plain
+# version is PyTorch's elementwise kernels, each rounding once: so the
+# limit is 0 ulps, bit for bit, over OPT_STEPS successive steps
+OPT_ULPS = 0
+OPT_STEPS = 3
+OPT_LR, OPT_WD = 3e-4, 0.1                 # the main path's
+OPT_EDGE_SHAPES = ((1,), (7,), (1000003,), (3, 5, 129))
+OPT_SOURCE = "deepspeed_tpu_torch/csrc/fused_optimizers.cu"
+OPT_REPLACES = {
+    "fused_adam": "deepspeed_tpu/ops/adam/fused_adam.py:54",
+    "fused_lamb": "deepspeed_tpu/ops/lamb/fused_lamb.py:24",
+    "fused_lion": "deepspeed_tpu/ops/adam/fused_adam.py:165",
+    "fused_adagrad": "deepspeed_tpu/ops/adam/fused_adam.py:197",
+}
+# bytes per parameter, each array read once and written once: K5 reads p,
+# g, m, v and writes p, m, v; K13 the same (u for p) plus the norms' and
+# the final write's read of p and u and write of p; K14, K15 read p, g
+# and one state, write p and the state
+OPT_BYTES = {"fused_adam": 28, "fused_lamb": 40, "fused_lion": 20,
+             "fused_adagrad": 20}
+# float32 operations per parameter (products, sums, quotients, roots)
+OPT_FLOPS = {"fused_adam": 16, "fused_lamb": 20, "fused_lion": 11,
+             "fused_adagrad": 9}
+F32_FLOPS = 67e12                  # H100 SXM float32, outside tensor cores
+# FusedAdam against AdamW over the 7 steps of the training path: the two
+# round the float32 update differently (bias corrections in float32 vs
+# float64, divisions by a scalar through its reciprocal in the plain
+# AdamW), so masters part by an ulp or so each step and the bf16 copies
+# of weights near a rounding edge flip; 2% of a loss leaves room for
+# that on a batch the model memorises, and catches a wrong update
+FUSED_LOSS_RTOL = 2e-2
+CKPT_LAYERS = 1                    # the checkpoint round trip's depth
 
 
 class SmokeFailure(Exception):
@@ -749,14 +802,65 @@ def phase_train_kernel_checks(torch):
 # --------------------------------------------------------------------- #
 # training main path
 # --------------------------------------------------------------------- #
-def _train_counters():
+def _train_counters(opt_type="AdamW"):
+    """The launch counters of the kernels a training run with ``opt_type``
+    goes through: K1-K4, and the optimizer's kernel for a Fused* name."""
     from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
-    return {"flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "rmsnorm_matmul": fcm.rmsnorm_matmul_fwd}
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "rmsnorm_matmul": fcm.rmsnorm_matmul_fwd}
+    opt = _optimizer_wrappers().get(opt_type)
+    if opt is not None:
+        counters[opt[0]] = opt[1]
+    return counters
+
+
+def _optimizer_wrappers():
+    """Fused* name → (kernel name, wrapper)."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam as fad
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb as fla
+
+    return {"FusedAdam": ("fused_adam", fad.fused_adam_update),
+            "FusedLamb": ("fused_lamb", fla.fused_lamb_update),
+            "FusedLion": ("fused_lion", fad.fused_lion_update),
+            "FusedAdagrad": ("fused_adagrad", fad.fused_adagrad_update)}
+
+
+def train_engine(torch, opt_type, layers=TRAIN_LAYERS, seed=SEED):
+    """``initialize`` on llama3-8B widths cut to ``layers`` with remat,
+    random float32 masters from a seeded generator, bench.py's ds_config
+    with ``opt_type``. → (cfg, model, engine)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import CausalLM, TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              num_layers=layers, remat=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = CausalLM(cfg, init_params(cfg, gen, torch.float32, DEVICE),
+                     trainable=True)
+    ds_config = {                           # bench.py's, one device
+        "train_micro_batch_size_per_gpu": 4,
+        "optimizer": {"type": opt_type,
+                      "params": {"lr": 3e-4, "weight_decay": 0.1}},
+        "gradient_clipping": 1.0,
+        "zero_optimization": {"stage": 0},
+        "bf16": {"enabled": True},
+    }
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=ds_config, device=DEVICE)
+    return cfg, model, engine
+
+
+def train_batch_tokens(torch, engine, vocab, seq=2048):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {"input_ids": torch.from_numpy(rng.integers(
+        0, vocab, size=(engine.train_batch_size(), seq))).to(DEVICE)}
 
 
 def _loss_and_grad_norm(torch, engine, batch):
@@ -769,59 +873,41 @@ def _loss_and_grad_norm(torch, engine, batch):
     return loss, norm
 
 
-def phase_train_main_path(torch):
-    import numpy as np
-
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch import CausalLM, TransformerConfig
-    from deepspeed_tpu_torch.models.transformer import init_params
-
-    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
-                              num_layers=TRAIN_LAYERS, remat=True)
+def phase_train_main_path(torch, opt_type="AdamW", path_check=True):
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    model = CausalLM(cfg, init_params(cfg, gen, torch.float32, DEVICE),
-                     trainable=True)
+    cfg, model, engine = train_engine(torch, opt_type)
     torch.cuda.synchronize()
-    log(f"train model: llama3_8b widths, {cfg.num_layers} layers, remat, "
-        f"{model.num_params() / 1e9:.3f} B params float32, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    ds_config = {                           # bench.py's, one device
-        "train_micro_batch_size_per_gpu": 4,
-        "optimizer": {"type": "AdamW",
-                      "params": {"lr": 3e-4, "weight_decay": 0.1}},
-        "gradient_clipping": 1.0,
-        "zero_optimization": {"stage": 0},
-        "bf16": {"enabled": True},
-    }
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model, config=ds_config, device=DEVICE)
+    log(f"train model ({opt_type}): llama3_8b widths, {cfg.num_layers} "
+        f"layers, remat, {model.num_params() / 1e9:.3f} B params float32, "
+        f"init {time.perf_counter() - t0:.1f} s")
     seq = 2048
-    rng = np.random.default_rng(0)
-    batch = {"input_ids": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(engine.train_batch_size(), seq))).to(
-        DEVICE)}
+    batch = train_batch_tokens(torch, engine, cfg.vocab_size, seq)
     tokens_per_step = engine.train_batch_size() * seq
 
-    # the same step through the kernels and through the plain composition
-    loss_k, norm_k = _loss_and_grad_norm(torch, engine, batch)
-    model.config = dataclasses.replace(cfg, attn_impl="xla",
-                                       fused_rmsnorm="off")
-    loss_x, norm_x = _loss_and_grad_norm(torch, engine, batch)
-    model.config = cfg
-    rel_loss = abs(loss_k - loss_x) / abs(loss_x)
-    rel_norm = abs(norm_k - norm_x) / abs(norm_x)
-    # bf16 activations (8 significant bits) through 4 layers; the two
-    # paths round at different places (P, dS and the fused h in the
-    # kernels; probabilities and h in the plain composition)
-    log(f"path check: loss {loss_k:.6f} (kernels) vs {loss_x:.6f} (xla/off),"
-        f" rel {rel_loss:.3e} (tol 1e-2); grad norm {norm_k:.6f} vs "
-        f"{norm_x:.6f}, rel {rel_norm:.3e} (tol 5e-2)")
-    check(rel_loss <= 1e-2, f"path check: losses differ by {rel_loss}")
-    check(rel_norm <= 5e-2, f"path check: grad norms differ by {rel_norm}")
-    torch.cuda.empty_cache()
+    path = None
+    if path_check:
+        # the same step through the kernels and the plain composition
+        loss_k, norm_k = _loss_and_grad_norm(torch, engine, batch)
+        model.config = dataclasses.replace(cfg, attn_impl="xla",
+                                           fused_rmsnorm="off")
+        loss_x, norm_x = _loss_and_grad_norm(torch, engine, batch)
+        model.config = cfg
+        rel_loss = abs(loss_k - loss_x) / abs(loss_x)
+        rel_norm = abs(norm_k - norm_x) / abs(norm_x)
+        # bf16 activations (8 significant bits) through 4 layers; the two
+        # paths round at different places (P, dS and the fused h in the
+        # kernels; probabilities and h in the plain composition)
+        log(f"path check: loss {loss_k:.6f} (kernels) vs {loss_x:.6f} "
+            f"(xla/off), rel {rel_loss:.3e} (tol 1e-2); grad norm "
+            f"{norm_k:.6f} vs {norm_x:.6f}, rel {rel_norm:.3e} (tol 5e-2)")
+        check(rel_loss <= 1e-2, f"path check: losses differ by {rel_loss}")
+        check(rel_norm <= 5e-2, f"path check: grad norms differ by "
+              f"{rel_norm}")
+        path = {"loss_kernels": loss_k, "loss_xla": loss_x,
+                "grad_norm_kernels": norm_k, "grad_norm_xla": norm_x}
+        torch.cuda.empty_cache()
 
-    counters = _train_counters()
+    counters = _train_counters(opt_type)
     losses = []
     for i in range(WARMUP_STEPS):
         t0 = time.perf_counter()
@@ -857,7 +943,7 @@ def phase_train_main_path(torch):
     tflops = flops_per_token * tokens_per_step / med / 1e12
     per_step = {n: c / TIMED_STEPS for n, c in launches.items()}
     training = {
-        "layers": cfg.num_layers, "seq": seq,
+        "optimizer": opt_type, "layers": cfg.num_layers, "seq": seq,
         "batch": engine.train_batch_size(), "tokens_per_step":
         tokens_per_step, "losses": losses,
         "step_s": {"median": med, "min": srt[0], "max": srt[-1]},
@@ -867,23 +953,24 @@ def phase_train_main_path(torch):
         "flops_per_token": flops_per_token,
         "max_memory_allocated_gb": peak / 1e9,
         "launches_timed_run": launches, "launches_per_step": per_step,
-        "path_check": {"loss_kernels": loss_k, "loss_xla": loss_x,
-                       "grad_norm_kernels": norm_k, "grad_norm_xla": norm_x},
+        "path_check": path,
     }
-    log(f"training: median step {med:.4f} s [{srt[0]:.4f}, {srt[-1]:.4f}] "
-        f"over {TIMED_STEPS} steps; {tokens_per_step / med:.1f} tokens/s; "
+    log(f"training ({opt_type}): median step {med:.4f} s [{srt[0]:.4f}, "
+        f"{srt[-1]:.4f}] over {TIMED_STEPS} steps; {tokens_per_step / med:.1f} tokens/s; "
         f"{tflops:.1f} TFLOP/s achieved (analytic bench.py flops), "
         f"{100 * tflops * 1e12 / BF16_FLOPS:.1f}% of the 989 TFLOP/s dense "
         f"bf16 peak (NVIDIA H100 SXM data sheet); peak memory "
         f"{peak / 1e9:.2f} GB; launches per step {per_step}")
-    training["profile"] = profile_step(torch, engine, batch, med)
+    training["profile"] = profile_step(torch, engine, batch, med, opt_type)
     del engine, model, batch
-    torch.cuda.empty_cache()
+    _free(torch)
     return launches, training
 
 
 _KERNEL_GROUPS = (            # kernel-name substrings → what they are
     ("K4 rmsnorm_matmul", ("rmsnorm_matmul_kernel",)),
+    ("K5/K13-K15 fused optimizers", ("adam_kernel", "lamb_kernel",
+                                     "lion_kernel", "adagrad_kernel")),
     ("K1 flash forward", ("flash_fwd_kernel",)),
     ("K2 flash dQ", ("flash_bwd_dq_kernel",)),
     ("K3 flash dK/dV", ("flash_bwd_dkv_kernel",)),
@@ -892,7 +979,7 @@ _KERNEL_GROUPS = (            # kernel-name substrings → what they are
 )
 
 
-def profile_step(torch, engine, batch, step_s):
+def profile_step(torch, engine, batch, step_s, opt_type):
     """One more ``train_batch`` under ``torch.profiler``: device time by
     kernel, grouped, and the device's busy share of the step's wall time
     (the union of the device events' intervals; its idle share is the
@@ -916,13 +1003,17 @@ def profile_step(torch, engine, batch, step_s):
 
     engine._apply_update = timed_update
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_batch(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    engine._apply_update = apply_update
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.train_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        # drop the instance attribute: the engine's own method again, and
+        # no reference cycle keeping the engine's tensors alive after it
+        del engine._apply_update
     update_ms = marks[0][0].elapsed_time(marks[0][1])
     by_name, spans, stalls = {}, [], 0
     for e in prof.events():
@@ -956,7 +1047,7 @@ def profile_step(torch, engine, batch, step_s):
         f"({100 * busy / (1e3 * wall):.1f}% of wall, idle "
         f"{100 - 100 * busy / (1e3 * wall):.1f}%); {len(spans)} device "
         f"events, {stalls} launch-queue-full stalls; the update (unscale, "
-        f"clip, AdamW) {update_ms:.1f} ms of it")
+        f"clip, {opt_type}) {update_ms:.1f} ms of it")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {group}: {ms:.2f} ms ({100 * ms / max(total, 1e-9):.1f}% "
             f"of device time)")
@@ -1087,6 +1178,323 @@ def phase_train_timing(torch, launches, errs):
     return kernels
 
 
+# --------------------------------------------------------------------- #
+# optimizer kernels (K5, K13-K15) and the optimizer family's paths
+# --------------------------------------------------------------------- #
+def _opt_variants():
+    """(kernel name, label, wrapper, plain version, state count,
+    a function (step, wd) -> kwargs) for every optimizer kernel
+    check, at the main path's lr."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam as fad
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb as fla
+
+    lr = OPT_LR
+    return [
+        ("fused_adam", "adam_w_mode=True", fad.fused_adam_update,
+         fad.fused_adam_update_reference, 2,
+         lambda s, wd: dict(step=s, lr=lr, weight_decay=wd,
+                            adam_w_mode=True)),
+        ("fused_adam", "adam_w_mode=False", fad.fused_adam_update,
+         fad.fused_adam_update_reference, 2,
+         lambda s, wd: dict(step=s, lr=lr, weight_decay=wd,
+                            adam_w_mode=False)),
+        ("fused_lamb", "", fla.fused_lamb_update,
+         fla.fused_lamb_update_reference, 2,
+         lambda s, wd: dict(step=s, lr=lr, weight_decay=wd)),
+        ("fused_lion", "", fad.fused_lion_update,
+         fad.fused_lion_update_reference, 1,
+         lambda s, wd: dict(lr=lr, weight_decay=wd)),
+        ("fused_adagrad", "", fad.fused_adagrad_update,
+         fad.fused_adagrad_update_reference, 1,
+         lambda s, wd: dict(lr=lr, weight_decay=wd)),
+    ]
+
+
+def _ulps(torch, a, b):
+    """Largest distance in float32 ulps between two float32 tensors (as
+    ordered integers; 0 means bitwise equal)."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((key(a) - key(b)).abs().max())
+
+
+def check_optimizer(torch, variant, shape, wd, gen):
+    """One kernel against its plain version on one leaf over OPT_STEPS
+    successive steps from the same inputs; the limit is 0 ulps (see
+    OPT_ULPS). → max abs error."""
+    name, label, kern, plain, n_state, kwargs = variant
+    p = torch.randn(shape, generator=gen, device=DEVICE) * 0.02
+    states = [torch.rand(shape, generator=gen, device=DEVICE) * 1e-3
+              for _ in range(n_state)]
+    mine = [p.clone()] + [t.clone() for t in states]
+    ref = [p] + states
+    for step in range(OPT_STEPS):
+        g = torch.randn(shape, generator=gen, device=DEVICE) * 1e-2
+        kern(mine[0], g, *mine[1:], **kwargs(step, wd))
+        plain(ref[0], g, *ref[1:], **kwargs(step, wd))
+    err, ulps = 0.0, 0
+    for a, b in zip(mine, ref):
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite output")
+        err = max(err, float((a - b).abs().max()))
+        ulps = max(ulps, _ulps(torch, a, b))
+    log(f"check {name} {label} shape={tuple(shape)} wd={wd}: max_abs_err "
+        f"{err:.3e}, {ulps} ulps (limit {OPT_ULPS})")
+    check(ulps <= OPT_ULPS, f"{name} {label} {tuple(shape)}: {ulps} ulps "
+          f"from its plain version")
+    return err
+
+
+def phase_optimizer_kernel_checks(torch):
+    """K5 (both modes), K13, K14, K15 against their plain versions at the
+    4-layer training model's leaves and at edge sizes, weight decay on and
+    off. → max abs error by kernel name."""
+    from deepspeed_tpu_torch import TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              num_layers=TRAIN_LAYERS)
+    leaves = sorted(set(param_shapes(cfg).values()))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    errs = {}
+    for variant in _opt_variants():
+        for shape in leaves + list(OPT_EDGE_SHAPES):
+            for wd in (0.0, OPT_WD):
+                err = check_optimizer(torch, variant, shape, wd, gen)
+                errs[variant[0]] = max(errs.get(variant[0], 0.0), err)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_fused_adam_main_path(torch, adamw):
+    """The training path of ``phase_train_main_path`` with ``FusedAdam``
+    (K5), beside the AdamW run: the first loss (before any update) equal
+    bit for bit, the later ones within FUSED_LOSS_RTOL."""
+    launches, training = phase_train_main_path(torch, "FusedAdam",
+                                               path_check=False)
+    check(training["losses"][0] == adamw["losses"][0],
+          f"FusedAdam's first loss {training['losses'][0]!r} != AdamW's "
+          f"{adamw['losses'][0]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(training["losses"], adamw["losses"])]
+    log(f"FusedAdam vs AdamW losses: {training['losses']} vs "
+        f"{adamw['losses']}; max rel {max(rel):.3e} (tol {FUSED_LOSS_RTOL})")
+    check(max(rel) <= FUSED_LOSS_RTOL, f"FusedAdam losses left AdamW's by "
+          f"{max(rel):.3e}")
+    for run in (adamw, training):
+        log(f"  {run['optimizer']:>9}: median step "
+            f"{1e3 * run['step_s']['median']:.1f} ms, "
+            f"{run['tokens_per_s']:.1f} tokens/s, "
+            f"{run['achieved_tflops']:.1f} TFLOP/s, update "
+            f"{run['profile']['update_ms']:.1f} ms device time, "
+            f"K5 launches {run['launches_timed_run'].get('fused_adam', 0)}")
+    training["loss_rel_vs_adamw"] = rel
+    _free(torch)
+    return launches, training
+
+
+def phase_other_fused(torch, first_loss):
+    """FusedLamb, FusedLion and FusedAdagrad on the same model, one engine
+    at a time, each freed before the next: 2 ``train_batch`` steps with the
+    counters set to 0 just before them and read just after. → by kernel
+    name: losses and launches."""
+    wrappers = _optimizer_wrappers()
+    out = {}
+    for opt_type in ("FusedLamb", "FusedLion", "FusedAdagrad"):
+        cfg, model, engine = train_engine(torch, opt_type)
+        batch = train_batch_tokens(torch, engine, cfg.vocab_size)
+        counters = _train_counters(opt_type)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = [float(engine.train_batch(batch)) for _ in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        name = wrappers[opt_type][0]
+        log(f"{opt_type}: losses {losses}, 2 steps {wall:.2f} s, launches "
+            f"{launches}")
+        check(losses[0] == first_loss, f"{opt_type}: first loss "
+              f"{losses[0]!r} != FusedAdam's {first_loss!r}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{opt_type}: non-finite loss")
+        for n, c in launches.items():
+            check(c > 0, f"{opt_type} path never launched {n}")
+        out[name] = {"optimizer": opt_type, "losses": losses,
+                     "launches": launches[name], "two_steps_s": wall}
+        del engine, model, batch
+        _free(torch)
+    return out
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_checkpoint(torch):
+    """Save after 2 FusedAdam steps, load into a fresh engine (other
+    weights), 2 more steps: losses bitwise equal to the first engine's
+    steps 3-4 without interruption; the directory read back with the
+    port's own ``load_universal``. At CKPT_LAYERS layers of llama3-8B
+    width (the saved state is disk time, not card time)."""
+    import shutil
+
+    from deepspeed_tpu_torch.checkpoint.ds_to_universal import load_universal
+    from deepspeed_tpu_torch.checkpoint.universal.layout import \
+        universal_name
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "deepspeed_tpu_torch", "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfg, model, engine = train_engine(torch, "FusedAdam", CKPT_LAYERS)
+        batch = train_batch_tokens(torch, engine, cfg.vocab_size)
+        first = [float(engine.train_batch(batch)) for _ in range(2)]
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root, client_state={"smoke": 1})
+        save_s = time.perf_counter() - t0
+        saved = {n: p.detach().clone() for n, p in engine.params.items()}
+        straight = [float(engine.train_batch(batch)) for _ in range(2)]
+        n_params = model.num_params()
+        del engine, model
+        _free(torch)
+
+        cfg, model, engine = train_engine(torch, "FusedAdam", CKPT_LAYERS,
+                                          seed=SEED + 7)
+        t0 = time.perf_counter()
+        path, client = engine.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        check(client == {"smoke": 1}, f"client_state came back as {client}")
+        check(engine.global_steps == engine.optimizer.count == 2,
+              "counters not restored")
+        for n, t in saved.items():
+            check(torch.equal(engine.params[n], t), f"{n}: master differs")
+        resumed = [float(engine.train_batch(batch)) for _ in range(2)]
+        log(f"checkpoint: llama3_8b widths, {CKPT_LAYERS} layer(s), "
+            f"{n_params / 1e9:.3f} B params, FusedAdam; {nbytes / 1e9:.2f} GB "
+            f"in {path}; save {save_s:.2f} s, load {load_s:.2f} s; losses "
+            f"{first} then {straight} (uninterrupted) vs {resumed} (resumed)")
+        check(resumed == straight, f"resumed losses {resumed} != "
+              f"uninterrupted {straight}")
+        del engine, model, batch
+        _free(torch)
+        t0 = time.perf_counter()
+        flat = load_universal(path, include_moments=True)
+        read_s = time.perf_counter() - t0
+        check(set(flat) == {universal_name(n) for n in saved},
+              "load_universal names differ from the engine's")
+        for n, t in saved.items():
+            rec = flat[universal_name(n)]
+            check(set(rec) == {"param", "exp_avg", "exp_avg_sq"},
+                  f"{n}: leaves {sorted(rec)}")
+            check(torch.equal(rec["param"].to(DEVICE), t),
+                  f"{n}: load_universal master differs")
+        log(f"  load_universal read {len(flat)} parameters x 3 leaves in "
+            f"{read_s:.2f} s; masters bitwise equal to the saved engine's")
+        del flat, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free(torch)
+    return {"layers": CKPT_LAYERS, "params": n_params, "bytes": nbytes,
+            "save_s": save_s, "load_s": load_s, "read_s": read_s,
+            "losses_first": first, "losses_uninterrupted": straight,
+            "losses_resumed": resumed}
+
+
+def phase_optimizer_timing(torch, launches, errs):
+    """K5, K13, K14, K15 over every leaf of the 4-layer model (one launch
+    per leaf, ``multi_tensor_apply``), L2 flushed, median of 10; the plain
+    versions the same way; one PyTorch call where one computes the same
+    function (timing only)."""
+    from deepspeed_tpu_torch import TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+    from deepspeed_tpu_torch.ops.adam import fused_adam as fad
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb as fla
+
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              num_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    shapes = param_shapes(cfg)
+    params = {n: torch.randn(s, generator=gen, device=DEVICE) * 0.02
+              for n, s in shapes.items()}
+    grads = {n: torch.randn(s, generator=gen, device=DEVICE) * 1e-2
+             for n, s in shapes.items()}
+    m = {n: torch.zeros_like(p) for n, p in params.items()}
+    v = {n: torch.zeros_like(p) for n, p in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    hyper = dict(lr=OPT_LR, weight_decay=OPT_WD)
+    two = {n: (m[n], v[n]) for n in params}
+    one = {n: (v[n],) for n in params}
+
+    def apply(fn, states, **kw):
+        return lambda: fad.multi_tensor_apply(fn, params, grads, states,
+                                              **hyper, **kw)
+
+    def library(make):
+        for n, p in params.items():
+            p.grad = grads[n]
+        opt = make(list(params.values()))
+        ms = cuda_ms(torch, opt.step, 10)
+        del opt
+        for p in params.values():
+            p.grad = None
+        _free(torch)
+        return ms
+
+    specs = [
+        ("fused_adam", apply(fad.fused_adam_update, two, step=0),
+         apply(fad.fused_adam_update_reference, two, step=0),
+         lambda: library(lambda ps: torch.optim.AdamW(
+             ps, lr=OPT_LR, weight_decay=OPT_WD, fused=True)),
+         "torch.optim.AdamW(fused=True).step()"),
+        ("fused_lamb", apply(fla.fused_lamb_update, two, step=0),
+         apply(fla.fused_lamb_update_reference, two, step=0), None, None),
+        ("fused_lion", apply(fad.fused_lion_update, one),
+         apply(fad.fused_lion_update_reference, one), None, None),
+        ("fused_adagrad", apply(fad.fused_adagrad_update, one),
+         apply(fad.fused_adagrad_update_reference, one),
+         lambda: library(lambda ps: torch.optim.Adagrad(
+             ps, lr=OPT_LR, eps=1e-10, weight_decay=OPT_WD)),
+         "torch.optim.Adagrad.step() (the same sqrt(a) + eps form)"),
+    ]
+    kernels = []
+    for name, kern, plain, lib_fn, lib_name in specs:
+        ms = cuda_ms(torch, kern, 10)
+        plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+        _free(torch)
+        lib = lib_fn() if lib_fn is not None else None
+        nbytes, flops = OPT_BYTES[name] * n_params, OPT_FLOPS[name] * n_params
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+        kernels.append({
+            "name": name, "route": "cuda", "source": OPT_SOURCE,
+            "replaces": OPT_REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "library": lib_name,
+            "shape": {"params": n_params, "leaves": len(params),
+                      "dtype": "f32", "layers": TRAIN_LAYERS},
+            "bytes": nbytes, "flops": flops})
+        log(f"time {name} over {len(params)} leaves, {n_params / 1e9:.3f} B "
+            f"params: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, "
+            f"{nbytes / ms / 1e9:.2f} TB/s; plain {plain_ms:.3f} ms; "
+            f"library {'none' if lib is None else f'{lib:.3f} ms'})")
+    del params, grads, m, v, two, one
+    _free(torch)
+    return kernels
+
+
 def main_shapes():
     """The shapes the main path hands the kernels (llama3_8b widths, the
     default engine: page 64, max_ctx 2048 → 32 pages per sequence, a pool
@@ -1125,6 +1533,7 @@ def main():
         shapes = main_shapes()
         errs = phase_kernel_checks(torch, ops, shapes)
         train_errs = phase_train_kernel_checks(torch)
+        opt_errs = phase_optimizer_kernel_checks(torch)
         launches, serving, model = phase_main_path(torch, ops)
         del model
         torch.cuda.empty_cache()
@@ -1132,13 +1541,22 @@ def main():
         del shapes                       # the serving timing inputs
         torch.cuda.empty_cache()
         train_launches, training = phase_train_main_path(torch)
+        fa_launches, fused_adam = phase_fused_adam_main_path(torch, training)
+        others = phase_other_fused(torch, fused_adam["losses"][0])
+        checkpoint = phase_checkpoint(torch)
         kernels += phase_train_timing(torch, train_launches, train_errs)
+        opt_launches = {"fused_adam": fa_launches["fused_adam"],
+                        **{n: o["launches"] for n, o in others.items()}}
+        kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"training_fused_adam": fused_adam,
+                    "other_fused_optimizers": others,
+                    "checkpoint": checkpoint}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,12 @@
 under the reference framework's JSON names: ``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``,
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``zero_optimization.stage``, ``fp16`` and ``bf16``. The batch solve and
+``zero_optimization.stage``, ``fp16``, ``bf16`` and ``checkpoint``. The
+batch solve and
 its ``ValueError``s are the JAX package's, with a data-parallel size of 1
-(one process, one device).
+(one process, one device). The ``checkpoint`` block takes the JAX fields
+and, like the JAX package, acts on none of them: the port's saves are
+synchronous whatever ``async_save`` says.
 
 A block the JAX package honours but the port does not implement yet
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` item, instead of
@@ -35,7 +38,6 @@ _NOT_PORTED = {
     "autotp": "M9",
     "sequence_parallel_size": "M9",
     "moe": "M9",
-    "checkpoint": "M4/M5 (checkpoints)",
     "data_efficiency": "M10 (model and feature breadth)",
     "curriculum_learning": "M10",
     "compression_training": "M10",
@@ -86,6 +88,15 @@ class BF16Config:
 
 
 @dataclasses.dataclass
+class CheckpointConfig:
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    async_save: bool = True
+
+
+@dataclasses.dataclass
 class OptimizerConfig:
     type: str = "Adam"
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -131,6 +142,8 @@ class DeepSpeedConfig:
             if "optimizer" in config else None
         self.scheduler = _block(SchedulerConfig, config["scheduler"]) \
             if "scheduler" in config else None
+        self.checkpoint_config = _block(CheckpointConfig,
+                                        config.get("checkpoint"))
         zero = dict(config.get("zero_optimization", {}) or {})
         self.zero_stage: int = zero.get("stage", 0)
 

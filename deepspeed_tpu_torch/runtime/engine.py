@@ -19,19 +19,33 @@ imperative path with the same update at the accumulation boundary;
 
 Updates are in place (the JAX engine donates its state instead). When the
 model's parameters are already float32 on the engine's device, the masters
-share their storage, so the model sees the trained values. Checkpoints are
-not ported yet (ROADMAP M4 remainder, M5).
+share their storage, so the model sees the trained values.
+
+``save_checkpoint``/``load_checkpoint`` keep the JAX signatures. A tag
+directory is a universal checkpoint directory
+(``runtime/checkpoint_engine/numpy_checkpoint_engine.py``): the float32
+masters and every optimizer state tensor by its layout name, plus the
+optimizer's update count, the loss scaler, ``global_steps``,
+``skipped_steps``, ``micro_steps``, the lr scheduler's state and
+``client_state`` — everything a bit-for-bit resume needs. A directory the
+JAX package's ``ds_to_universal.convert`` wrote loads too (``load_dir``
+itself, holding ``index.json``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import dataclasses
+import os
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..accelerator import get_accelerator
+from ..checkpoint.ds_to_universal import INDEX_FILE
+from ..checkpoint.universal.layout import universal_name
 from ..utils.logging import logger
+from .checkpoint_engine.numpy_checkpoint_engine import NumpyCheckpointEngine
 from .config import DeepSpeedConfig
-from .fp16.loss_scaler import create_loss_scaler
+from .fp16.loss_scaler import LossScalerState, create_loss_scaler
 from .lr_schedules import get_schedule_fn
 from .optimizer import build_optimizer
 
@@ -244,3 +258,118 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch) -> torch.Tensor:
         return self.forward(batch)
+
+    # ------------------------------------------------------------------ #
+    # Checkpointing (the universal layout; JAX engine signatures)
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        save_latest: bool = True,
+                        exclude_frozen_parameters: bool = False) -> bool:
+        """Save the run as ``save_dir/tag`` (default ``global_step{n}``)
+        and, with ``save_latest``, commit it as ``latest``.
+        ``client_state`` must be JSON-serialisable (tensors become
+        lists). ``exclude_frozen_parameters`` is accepted and, as in the
+        JAX engine, has no effect: every master is saved."""
+        tag = tag or f"global_step{self.global_steps}"
+        leaves = {}
+        for name, p in self.params.items():
+            leaves[universal_name(name)] = {
+                "param": p.detach(), **self.optimizer.named_state(name)}
+        scheduler = self.lr_scheduler.state_dict() \
+            if hasattr(self.lr_scheduler, "state_dict") else None
+        meta = {
+            "global_steps": self.global_steps,
+            "skipped_steps": self.skipped_steps,
+            "micro_steps": self.micro_steps,
+            "optimizer": {"type": type(self.optimizer).__name__,
+                          "count": self.optimizer.count},
+            "loss_scaler": dataclasses.asdict(self.scaler_state),
+            "lr_scheduler": scheduler,
+            "client_state": client_state or {},
+            "config": {"zero_stage": self.config.zero_stage,
+                       "world_size": 1},
+        }
+        store = NumpyCheckpointEngine(save_dir)
+        store.save({"leaves": leaves, "meta": meta,
+                    "step": self.global_steps}, tag)
+        if save_latest:
+            store.commit(tag)
+        logger.info(f"saved checkpoint {save_dir}/{tag}")
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False
+                        ) -> Tuple[Optional[str], dict]:
+        """Restore ``load_dir/tag``; ``tag=None`` takes the committed
+        ``latest``, falling back to the newest valid committed tag, or
+        reads ``load_dir`` itself when it is a universal directory (it
+        holds ``index.json``). A damaged explicit tag raises
+        ``CheckpointCorruptError``. With ``load_module_only`` or without
+        ``load_optimizer_states`` only the masters are restored, as in the
+        JAX engine. ``load_module_strict`` requires the checkpoint's
+        parameter names to be the engine's. → ``(path, client_state)``, or
+        ``(None, {})`` when there is nothing to load."""
+        if tag is None and os.path.exists(os.path.join(load_dir, INDEX_FILE)):
+            load_dir, tag = os.path.split(os.path.abspath(load_dir))
+        store = NumpyCheckpointEngine(load_dir)
+        if tag is None:
+            tag = store.latest_tag()
+            if tag is None:
+                logger.warning(f"no (valid) checkpoint found under {load_dir}")
+                return None, {}
+        ckpt = store.load(None, tag)
+        leaves, meta = ckpt["leaves"], ckpt["meta"]
+        names = {name: universal_name(name) for name in self.params}
+        missing = sorted(n for n, u in names.items() if u not in leaves)
+        extra = sorted(set(leaves) - set(names.values()))
+        if load_module_strict and (missing or extra):
+            raise ValueError(f"checkpoint {ckpt['path']} does not match the "
+                             f"engine's parameters: missing {missing}, "
+                             f"unexpected {extra}")
+        full = load_optimizer_states and not load_module_only
+        absent = set()
+        with torch.no_grad():
+            for name, p in self.params.items():
+                rec = leaves.get(names[name])
+                if rec is None:
+                    continue
+                p.copy_(rec["param"])
+                if not full:
+                    continue
+                for sname, buf in self.optimizer.named_state(name).items():
+                    if sname in rec:
+                        buf.copy_(rec[sname])
+                    else:
+                        absent.add(sname)
+        if absent:
+            logger.warning(
+                f"checkpoint {ckpt['path']} holds no {sorted(absent)} for "
+                f"{type(self.optimizer).__name__}: that optimizer state "
+                f"starts from its initial value")
+        if full:
+            self._restore_counters(meta, ckpt["step"])
+        if load_lr_scheduler_states and meta and meta.get("lr_scheduler") \
+                and hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        logger.info(f"loaded checkpoint {ckpt['path']}")
+        return ckpt["path"], (meta or {}).get("client_state", {})
+
+    def _restore_counters(self, meta: Optional[dict], step: int) -> None:
+        """The counters of a port checkpoint, or of a JAX universal export
+        (no ``meta.json``): ``step`` updates, none skipped, the scaler as
+        initialised."""
+        if meta is None:
+            self.global_steps = self.optimizer.count = step
+            self.skipped_steps = 0
+            self.micro_steps = step * self.gradient_accumulation_steps()
+            self.scaler_state = self.loss_scaler.init()
+            return
+        self.global_steps = int(meta["global_steps"])
+        self.skipped_steps = int(meta["skipped_steps"])
+        self.micro_steps = int(meta["micro_steps"])
+        self.optimizer.count = int(meta["optimizer"]["count"])
+        self.scaler_state = LossScalerState(**meta["loss_scaler"])

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points do not fall back to the CPU."""
+"""The PyTorch port stands alone: it imports neither JAX, nor the JAX
+package, nor ``ml_dtypes``, and its entry points do not fall back to the
+CPU."""
 import ast
 import os
 import subprocess
@@ -23,7 +24,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "deepspeed_tpu"
-             or m.startswith("deepspeed_tpu."))
+             or m.startswith("deepspeed_tpu.") or m == "ml_dtypes"
+             or m.startswith("ml_dtypes."))
 print(len(names))
 print(",".join(bad))
 """
@@ -62,7 +64,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             path = os.path.join(root, fn)
             for mod in _imports(path):
                 top = mod.split(".")[0]
-                if top in ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax"):
+                if top in ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax",
+                           "ml_dtypes"):
                     offenders.append(f"{os.path.relpath(path, REPO_ROOT)}: "
                                      f"{mod}")
     assert n_files >= 15

@@ -323,8 +323,8 @@ def test_optimizers_match_optax(name, params):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["FusedAdam", "FusedLamb", "Lamb", "Lion",
-                                  "OneBitAdam"])
+@pytest.mark.parametrize("name", ["Muon", "OneBitAdam", "OneBitLamb",
+                                  "ZeroOneAdam"])
 def test_optimizer_names_not_offered_are_refused(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_opt(name, {}, learning_rate=lambda c: 1e-3)
