@@ -62,9 +62,27 @@ non-zero before the last line is printed:
      PyTorch call (SDPA forward and backward; ``F.rms_norm`` plus
      ``torch.matmul``), and each optimizer kernel over every leaf of the
      4-layer model (``torch.optim.AdamW(fused=True)`` and
-     ``torch.optim.Adagrad`` as the library calls of K5 and K15); print the
-     ``kernels`` JSON line (serving, training and optimizer kernels);
- 13. print ``{"ok": true, "device": {...}}`` as the last line.
+     ``torch.optim.Adagrad`` as the library calls of K5 and K15);
+ 13. (after phase 8) hold the block-sparse attention kernels K16-K19
+     against their plain versions on 16 edge batches: float32 and bf16,
+     block 16, 32, 64 and 128, hd 64 and 128, each layout class in turn,
+     per-head layouts, an emptied q-block row (O = 0, LSE = -1e30 exactly)
+     and S off the block grid;
+ 14. the sparse-attention path: ``SparseSelfAttention(cfg)(q, k, v,
+     use_kernel=True)`` at llama3-8B attention width (B 1, H 32, S 8192,
+     hd 128, bf16, block 64): under ``torch.no_grad()`` with the Fixed
+     layout, K17 alone must launch, once a call; with q, k, v requiring
+     grad and ``loss.backward()``, with the Fixed and the BigBird layout,
+     K16, K18 and K19 once each a step; the serving output against the
+     masked-dense path (8 heads at a time), the training gradients bitwise
+     equal to the kernels called directly, and K16-K19 against their plain
+     versions at this width;
+ 15. time K16-K19 at that shape beside their bound, their plain versions,
+     SDPA with the expanded boolean token mask (timing only) and K1's
+     causal dense forward (for scale); print the sparse results' line and
+     the ``kernels`` JSON line (serving, training, optimizer and sparse
+     kernels);
+ 16. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -172,6 +190,52 @@ F32_FLOPS = 67e12                  # H100 SXM float32, outside tensor cores
 # that on a batch the model memorises, and catches a wrong update
 FUSED_LOSS_RTOL = 2e-2
 CKPT_LAYERS = 1                    # the checkpoint round trip's depth
+
+# block-sparse attention (K16-K19): llama3-8B attention width at its
+# max_seq_len (transformer.py:103-107), bf16
+SPARSE_MAIN = dict(B=1, H=32, S=8192, hd=128, block=64)
+SPARSE_CALLS = 3                   # timed serving calls after a warm-up
+SPARSE_STEPS = 3                   # timed training steps per layout
+SPARSE_REPLACES = {
+    "block_sparse_fwd":
+        "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:60",
+    "block_sparse_fwd_nolse":
+        "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:101",
+    "block_sparse_bwd_dq":
+        "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:141",
+    "block_sparse_bwd_dkv":
+        "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:172",
+}
+SPARSE_SOURCES = {
+    "block_sparse_fwd": "deepspeed_tpu_torch/csrc/block_sparse_attention_fwd.cu",
+    "block_sparse_fwd_nolse":
+        "deepspeed_tpu_torch/csrc/block_sparse_attention_fwd.cu",
+    "block_sparse_bwd_dq":
+        "deepspeed_tpu_torch/csrc/block_sparse_attention_bwd.cu",
+    "block_sparse_bwd_dkv":
+        "deepspeed_tpu_torch/csrc/block_sparse_attention_bwd.cu",
+}
+# float32 edge batches: the kernels and the plain versions sum the same
+# float32 terms over <= 1024 keys (8 blocks of 128) in another order (the
+# kernels chunk by 64 keys with an online softmax), |error| <= 1024 *
+# 2**-24 = 2**-14 of the sum of the terms' magnitudes; twice that covers
+# the exp/log roundings
+SPARSE_F32_TERMS = 2.0 ** -13
+# the masked-dense path in bf16 rounds the raw scores and their scaled
+# copy to bf16 (2 * |s| * 2**-9 in each scaled score, |s| <= ~7 for these
+# N(0, 1) scores: a relative error of each P up to ~2**-5.2, twice that
+# with the normaliser) and its probabilities (2**-9): 2**-4 of |P|@|V|
+DENSE_BF16_TERMS = 2.0 ** -4
+# edge layouts of the build-and-check phase, one per layout class
+SPARSE_EDGE_LAYOUTS = (
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=1,
+                                 attention="unidirectional")),
+    ("BigBirdSparsityConfig", {}),
+    ("BSLongformerSparsityConfig", dict(global_block_indices=[0, 5])),
+    ("VariableSparsityConfig", dict(num_random_blocks=1,
+                                    local_window_blocks=[1, 2, 4],
+                                    global_block_indices=[0, 3])),
+)
 
 
 class SmokeFailure(Exception):
@@ -1495,6 +1559,427 @@ def phase_optimizer_timing(torch, launches, errs):
     return kernels
 
 
+# --------------------------------------------------------------------- #
+# block-sparse attention (K16-K19)
+# --------------------------------------------------------------------- #
+def sparse_configs(H):
+    """The main path's two layouts at block 64: Fixed unidirectional (the
+    serving and training direction) and BigBird bidirectional (training)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+
+    blk = SPARSE_MAIN["block"]
+    return {"fixed": sc.FixedSparsityConfig(
+                num_heads=H, block=blk, num_local_blocks=4,
+                num_global_blocks=1, attention="unidirectional"),
+            "bigbird": sc.BigBirdSparsityConfig(num_heads=H, block=blk)}
+
+
+def sparse_terms(torch, bs, q, k, v, do, lse, delta, tables, scale):
+    """Float32 sums of the magnitudes of the terms behind each output,
+    over the active blocks only, from the given LSE and delta: |P|@|V|
+    (O), |dS|@|K| (dQ), |dS|^T@|Q| (dK), |P|^T@|dO| (dV). They scale the
+    error limits as in ``check_flash``."""
+    B, H, S, hd = q.shape
+    blk = tables.block
+    Sp = tables.nk * blk
+    kb, vb = bs._blocks(k, tables.nk, blk), bs._blocks(v, tables.nk, blk)
+    pv = torch.zeros(B, H, S, hd, device=q.device)
+    dsk = torch.zeros_like(pv)
+    dsq = torch.zeros(B, H * Sp, hd, device=q.device)
+    pdo = torch.zeros_like(dsq)
+    heads = torch.arange(H, device=q.device)[:, None]
+    rows, _ = tables.padded_rows()
+    for i in range(-(-S // blk)):
+        idx, valid = rows[i]
+        if idx.shape[1] == 0:
+            continue
+        r0, r1 = i * blk, min(S, (i + 1) * blk)
+        kg = bs._gather(kb, idx, H).flatten(2, 3)
+        vg = bs._gather(vb, idx, H).flatten(2, 3)
+        key_ok, _ = bs._slot_mask(idx, valid, blk, S, H)
+        qi, doi = q[:, :, r0:r1].float(), do[:, :, r0:r1].float()
+        s = torch.einsum("bhqd,bhnd->bhqn", qi, kg) * scale
+        p = torch.where(key_ok[:, None],
+                        torch.exp(s - lse[:, :, r0:r1, None]), 0.0)
+        dp = torch.einsum("bhqd,bhnd->bhqn", doi, vg)
+        ds = (p * (dp - delta[:, :, r0:r1, None]) * scale).abs()
+        pv[:, :, r0:r1] = p @ vg.abs()
+        dsk[:, :, r0:r1] = ds @ kg.abs()
+        pos = idx[..., None] * blk + torch.arange(blk, device=q.device)
+        flat = (heads * Sp + pos.expand(H, -1, -1).flatten(1)).flatten()
+        dsq.index_add_(1, flat, torch.einsum(
+            "bhqn,bhqd->bhnd", ds, qi.abs()).flatten(1, 2))
+        pdo.index_add_(1, flat, torch.einsum(
+            "bhqn,bhqd->bhnd", p, doi.abs()).flatten(1, 2))
+    dsq = dsq.view(B, H, Sp, hd)[:, :, :S]
+    pdo = pdo.view(B, H, Sp, hd)[:, :, :S]
+    return pv, dsk, dsq, pdo
+
+
+def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
+    """K16, K17, K18 and K19 against their plain versions on one batch.
+    The backward kernels get the plain forward's LSE and delta, so each
+    check sees one kernel; K17's O must equal K16's bit for bit (one kernel
+    body). → max abs error by kernel name."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o_ref, lse_ref = bs.block_sparse_fwd_reference(q, k, v, tables, scale)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    pv, dsk, dsq, pdo = sparse_terms(torch, bs, q, k, v, do, lse_ref, delta,
+                                     tables, scale)
+
+    def lim(ref, t):
+        return atol + rtol * ref.float().abs() + terms * t
+
+    why = f"{atol:.0e} + {rtol:.3g}*|ref| + {terms:.3g}*"
+    errs = {}
+    o, lse = bs.block_sparse_fwd(q, k, v, tables, scale)
+    errs["block_sparse_fwd"] = _compare_limit(
+        torch, f"block_sparse_fwd O {tag}", o, o_ref, lim(o_ref, pv),
+        why + "|P|@|V|")
+    _compare_limit(torch, f"block_sparse_fwd LSE {tag}", lse, lse_ref,
+                   1e-4 + 1e-5 * lse_ref.abs(), "1e-4 + 1e-5*|ref|, float32")
+    o2 = bs.block_sparse_fwd_nolse(q, k, v, tables, scale)
+    check(torch.equal(o2, o), f"block_sparse_fwd_nolse {tag}: O differs "
+          f"from block_sparse_fwd's")
+    errs["block_sparse_fwd_nolse"] = float((o2.float() - o_ref.float())
+                                           .abs().max())
+    dq_ref = bs.block_sparse_bwd_dq_reference(q, k, v, do, lse_ref, delta,
+                                              tables, scale)
+    dq = bs.block_sparse_bwd_dq(q, k, v, do, lse_ref, delta, tables, scale)
+    errs["block_sparse_bwd_dq"] = _compare_limit(
+        torch, f"block_sparse_bwd_dq {tag}", dq, dq_ref, lim(dq_ref, dsk),
+        why + "|dS|@|K|")
+    dk_ref, dv_ref = bs.block_sparse_bwd_dkv_reference(
+        q, k, v, do, lse_ref, delta, tables, scale)
+    dk, dv = bs.block_sparse_bwd_dkv(q, k, v, do, lse_ref, delta, tables,
+                                     scale)
+    err_k = _compare_limit(torch, f"block_sparse_bwd_dkv dK {tag}", dk,
+                           dk_ref, lim(dk_ref, dsq), why + "|dS|^T@|Q|")
+    err_v = _compare_limit(torch, f"block_sparse_bwd_dkv dV {tag}", dv,
+                           dv_ref, lim(dv_ref, pdo), why + "|P|^T@|dO|")
+    errs["block_sparse_bwd_dkv"] = max(err_k, err_v)
+    return errs, (o, lse_ref)
+
+
+def sparse_inputs(torch, gen, B, H, S, hd, dtype, n=4):
+    return [torch.randn(B, H, S, hd, generator=gen, device=DEVICE,
+                        dtype=torch.float32).to(dtype) for _ in range(n)]
+
+
+def phase_sparse_kernel_checks(torch):
+    """K16-K19 against their plain versions on edge batches: float32 and
+    bf16; block 16, 32, 64, 128; hd 64 and 128; each layout class in turn,
+    per-head layouts, an emptied q-block row, S off the block grid."""
+    import itertools
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    combos = itertools.product((torch.float32, torch.bfloat16),
+                               (16, 32, 64, 128), (64, 128))
+    for i, (dtype, blk, hd) in enumerate(combos):
+        name, kw = SPARSE_EDGE_LAYOUTS[i % len(SPARSE_EDGE_LAYOUTS)]
+        per_head = i % 3 == 0
+        empty = i % 3 == 1
+        nb, H = 8, 4
+        S = nb * blk - (5 if i % 2 else 0)
+        layout = getattr(sc, name)(num_heads=H, block=blk,
+                                   different_layout_per_head=per_head,
+                                   **kw).make_layout(nb * blk)
+        if empty:
+            layout[:, 3] = False
+        tables = bs.prepare_layout(layout, blk, H, DEVICE)
+        q, k, v, do = sparse_inputs(torch, gen, 2, H, S, hd, dtype)
+        f32 = dtype == torch.float32
+        tag = (f"{'f32' if f32 else 'bf16'} {name[:-14]} block={blk} hd={hd} "
+               f"S={S} per_head={per_head} empty_row={empty}")
+        _, (o, _) = check_sparse(
+            torch, bs, tag, q, k, v, do, tables,
+            SPARSE_F32_TERMS if f32 else FLASH_BF16_TERMS,
+            F32_RTOL if f32 else BF16_RTOL, 1e-5 if f32 else BF16_ATOL)
+        if empty:
+            o_k, lse_k = bs.block_sparse_fwd(q, k, v, tables)
+            rows = slice(3 * blk, 4 * blk)
+            check(bool((o_k[:, :, rows] == 0).all())
+                  and bool((lse_k[:, :, rows] == -1e30).all()),
+                  f"{tag}: the empty row is not O = 0, LSE = -1e30")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _sparse_counters():
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+
+    return {name: getattr(bs, name) for name in SPARSE_REPLACES}
+
+
+def phase_sparse_main_path(torch):
+    """``SparseSelfAttention(cfg)(q, k, v, use_kernel=True)`` at llama3-8B
+    attention width (B 1, H 32, S 8192, hd 128, bf16, block 64): serving
+    under ``torch.no_grad()`` (Fixed), then training steps with
+    ``loss.backward()`` (Fixed and BigBird), each with the four counters
+    set to 0 just before its timed calls and read just after; the outputs
+    against the masked-dense path and the plain versions; the autograd
+    gradients bitwise equal to the kernels called directly. → (launches,
+    results, main-shape errors)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparse_self_attention as ssa
+
+    m = SPARSE_MAIN
+    B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    q, k, v, w = sparse_inputs(torch, gen, B, H, S, hd, torch.bfloat16)
+    counters = _sparse_counters()
+    cfgs = sparse_configs(H)
+    results, launches, errs = {"layouts": {}}, {}, {}
+    for name, cfg in cfgs.items():
+        tables = bs.prepare_layout(cfg.make_layout(S), m["block"], H, DEVICE)
+        results["layouts"][name] = {
+            "density": tables.density(),
+            "active_blocks_per_head": tables.active_blocks(H) // H,
+            "blocks": [tables.nq, tables.nk]}
+        log(f"sparse layout {name}: {tables.nq} x {tables.nk} blocks, "
+            f"{tables.active_blocks(H) // H} active per head, density "
+            f"{100 * tables.density():.2f}%")
+
+    # serving direction ------------------------------------------------ #
+    attn = ssa.SparseSelfAttention(cfgs["fixed"])
+    with torch.no_grad():
+        attn(q, k, v, use_kernel=True)                 # builds the lists
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        times = []
+        for _ in range(SPARSE_CALLS):
+            t0 = time.perf_counter()
+            out = attn(q, k, v, use_kernel=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        serve = {n: fn.launches for n, fn in counters.items()}
+    log(f"sparse serving (no_grad, fixed): {SPARSE_CALLS} calls "
+        f"{[round(1e3 * t, 3) for t in times]} ms; launches {serve}")
+    check(serve == {"block_sparse_fwd": 0,
+                    "block_sparse_fwd_nolse": SPARSE_CALLS,
+                    "block_sparse_bwd_dq": 0, "block_sparse_bwd_dkv": 0},
+          f"serving direction launched {serve}, not K17 alone once a call")
+    check(tuple(out.shape) == (B, H, S, hd) and out.dtype == torch.bfloat16
+          and bool(torch.isfinite(out).all()), "sparse serving output")
+    launches["block_sparse_fwd_nolse"] = serve["block_sparse_fwd_nolse"]
+    results["serving_call_s"] = sorted(times)
+    # against the masked-dense path, 8 heads at a time (same layout: the
+    # heads share it, and BigBird/Fixed draw per layout head)
+    tables = bs.prepare_layout(cfgs["fixed"].make_layout(S), m["block"], H,
+                               DEVICE)
+    pv = bs.block_sparse_fwd_reference(q.float(), k.float(), v.float().abs(),
+                                       tables)[0]
+    worst = 0.0
+    with torch.no_grad():
+        for h0 in range(0, H, 8):
+            dense = ssa.SparseSelfAttention(
+                sparse_configs(8)["fixed"])(q[:, h0:h0 + 8], k[:, h0:h0 + 8],
+                                            v[:, h0:h0 + 8])
+            ref = dense.float()
+            lim = (BF16_ATOL + BF16_RTOL * ref.abs()
+                   + DENSE_BF16_TERMS * pv[:, h0:h0 + 8].float())
+            err = _compare_limit(
+                torch, f"sparse serving vs masked-dense heads {h0}-{h0 + 7}",
+                out[:, h0:h0 + 8], ref, lim,
+                f"{BF16_ATOL:.0e} + {BF16_RTOL:.3g}*|ref| + "
+                f"{DENSE_BF16_TERMS:.3g}*|P|@|V|, bf16 dense path")
+            worst = max(worst, err)
+            del dense, ref, lim
+            torch.cuda.empty_cache()
+    results["vs_masked_dense_max_abs_err"] = worst
+    del pv, out
+
+    # training direction ----------------------------------------------- #
+    results["training"] = {}
+    for name, cfg in cfgs.items():
+        attn = ssa.SparseSelfAttention(cfg)
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+        def step():
+            for t in (qg, kg, vg):
+                t.grad = None
+            o = attn(qg, kg, vg, use_kernel=True)
+            loss = (o.float() * w.float()).sum()
+            loss.backward()
+            return o, loss
+
+        step()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        times = []
+        for _ in range(SPARSE_STEPS):
+            t0 = time.perf_counter()
+            o, loss = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        train = {n: fn.launches for n, fn in counters.items()}
+        log(f"sparse training ({name}): {SPARSE_STEPS} steps "
+            f"{[round(1e3 * t, 3) for t in times]} ms, loss "
+            f"{float(loss.detach()):.6f}; launches {train}")
+        check(train == {"block_sparse_fwd": SPARSE_STEPS,
+                        "block_sparse_fwd_nolse": 0,
+                        "block_sparse_bwd_dq": SPARSE_STEPS,
+                        "block_sparse_bwd_dkv": SPARSE_STEPS},
+              f"training direction ({name}) launched {train}, not K16, K18 "
+              f"and K19 once a step")
+        for n in ("block_sparse_fwd", "block_sparse_bwd_dq",
+                  "block_sparse_bwd_dkv"):
+            launches[n] = launches.get(n, 0) + train[n]
+        grads = (qg.grad, kg.grad, vg.grad)
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              f"sparse training ({name}): non-finite gradient")
+        # the Function's wiring: the same kernels called directly
+        tables = bs.prepare_layout(cfg.make_layout(S), m["block"], H, DEVICE)
+        o_k, lse_k = bs.block_sparse_fwd(q, k, v, tables)
+        delta = (w.float() * o_k.float()).sum(-1)
+        direct = (bs.block_sparse_bwd_dq(q, k, v, w, lse_k, delta, tables),
+                  *bs.block_sparse_bwd_dkv(q, k, v, w, lse_k, delta, tables))
+        check(torch.equal(o.detach(), o_k) and all(
+            torch.equal(a, b) for a, b in zip(grads, direct)),
+            f"sparse training ({name}): autograd differs from the kernels "
+            f"called directly")
+        del qg, kg, vg, grads, direct, o, o_k, lse_k, delta
+        torch.cuda.empty_cache()
+        e, _ = check_sparse(torch, bs, f"bf16 main shapes {name}", q, k, v, w,
+                            tables, FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL)
+        for n, x in e.items():
+            errs[n] = max(errs.get(n, 0.0), x)
+        results["training"][name] = {"step_s": sorted(times),
+                                     "loss": float(loss.detach()),
+                                     "launches_timed": train}
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return launches, results, errs
+
+
+def sparse_work(name, B, H, S, hd, active):
+    """(bytes, flops) of one kernel: its [B, H, S, hd] bf16 inputs read once
+    and outputs written once, float32 [B, H, S] statistics; 2*hd flops per
+    product and (query, key) pair of the ``active`` blocks (over all heads,
+    of block**2 pairs each)."""
+    n, stats = B * H * S * hd * 2, B * H * S * 4
+    blk = SPARSE_MAIN["block"]
+    pairs = active * blk * blk
+    return {"block_sparse_fwd": (4 * n + stats, 4 * hd * pairs),
+            "block_sparse_fwd_nolse": (4 * n, 4 * hd * pairs),
+            "block_sparse_bwd_dq": (5 * n + 2 * stats, 6 * hd * pairs),
+            "block_sparse_bwd_dkv": (6 * n + 2 * stats, 8 * hd * pairs)}[name]
+
+
+def phase_sparse_timing(torch, launches, errs, results):
+    """K16-K19 at the main shape (Fixed; BigBird beside it), L2 flushed,
+    median of 10; the plain versions (median of 3); SDPA with the expanded
+    boolean token mask as the library call (forward for K16/K17, backward
+    for K18/K19; timing only); K1's causal dense forward at the same shape
+    for scale (timing only)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    m = SPARSE_MAIN
+    B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    q, k, v, do = sparse_inputs(torch, gen, B, H, S, hd, torch.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    k1_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(qt, kt, vt, True,
+                                                          scale), 10)
+    del qt, kt, vt
+    log(f"time flash_attention_fwd (K1) causal dense at B {B} S {S} H {H} "
+        f"hd {hd}: {k1_ms:.4f} ms (for scale)")
+    by_layout = {}
+    kernels = []
+    for lname, cfg in sparse_configs(H).items():
+        layout = cfg.make_layout(S)
+        tables = bs.prepare_layout(layout, m["block"], H, DEVICE)
+        o, lse = bs.block_sparse_fwd(q, k, v, tables, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        specs = {
+            "block_sparse_fwd": (
+                lambda: bs.block_sparse_fwd(q, k, v, tables, scale),
+                lambda: bs.block_sparse_fwd_reference(q, k, v, tables, scale)),
+            "block_sparse_fwd_nolse": (
+                lambda: bs.block_sparse_fwd_nolse(q, k, v, tables, scale),
+                lambda: bs.block_sparse_fwd_reference(q, k, v, tables,
+                                                      scale)),
+            "block_sparse_bwd_dq": (
+                lambda: bs.block_sparse_bwd_dq(q, k, v, do, lse, delta,
+                                               tables, scale),
+                lambda: bs.block_sparse_bwd_dq_reference(
+                    q, k, v, do, lse, delta, tables, scale)),
+            "block_sparse_bwd_dkv": (
+                lambda: bs.block_sparse_bwd_dkv(q, k, v, do, lse, delta,
+                                                tables, scale),
+                lambda: bs.block_sparse_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, tables, scale)),
+        }
+        lib_fwd = lib_bwd = None
+        if lname == "fixed":
+            mask = torch.from_numpy(np.kron(
+                layout[0], np.ones((m["block"],) * 2, bool))).to(DEVICE)
+            mask = mask[None, None]
+            lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), 10)
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), 10)
+            del out, qg, kg, vg, mask
+            torch.cuda.empty_cache()
+        active = tables.active_blocks(H)
+        rows = {}
+        for name, (kern, plain) in specs.items():
+            ms = cuda_ms(torch, kern, 10)
+            plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+            nbytes, flops = sparse_work(name, B, H, S, hd, active)
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+            lib = lib_bwd if "bwd" in name else lib_fwd
+            rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib,
+                          "bytes": nbytes, "flops": flops}
+            log(f"time {name} ({lname}, density "
+                f"{100 * tables.density():.2f}%): {ms:.4f} ms (bound "
+                f"{b_ms:.4f} ms by {b_by}, {flops / ms / 1e9:.1f} TFLOP/s; "
+                f"plain {plain_ms:.3f} ms; library "
+                f"{'-' if lib is None else f'{lib:.4f} ms'})")
+            torch.cuda.empty_cache()
+        by_layout[lname] = {"density": tables.density(),
+                            "active_blocks": active, "kernels": rows}
+        del o, lse, delta
+        torch.cuda.empty_cache()
+    for name in SPARSE_REPLACES:
+        main = by_layout["fixed"]["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SPARSE_SOURCES[name],
+            "replaces": SPARSE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], **main,
+            "library": ("scaled_dot_product_attention with the expanded "
+                        "boolean token mask, " +
+                        ("backward (dQ, dK, dV together)" if "bwd" in name
+                         else "forward")),
+            "shape": {"B": B, "H": H, "S": S, "hd": hd,
+                      "block": m["block"], "layout": "fixed",
+                      "density": by_layout["fixed"]["density"],
+                      "dtype": "bf16"},
+            "bigbird": by_layout["bigbird"]["kernels"][name]})
+    results["timing"] = {"k1_causal_dense_ms": k1_ms, "by_layout": by_layout}
+    del q, k, v, do
+    _free(torch)
+    return kernels
+
+
 def main_shapes():
     """The shapes the main path hands the kernels (llama3_8b widths, the
     default engine: page 64, max_ctx 2048 → 32 pages per sequence, a pool
@@ -1534,6 +2019,7 @@ def main():
         errs = phase_kernel_checks(torch, ops, shapes)
         train_errs = phase_train_kernel_checks(torch)
         opt_errs = phase_optimizer_kernel_checks(torch)
+        phase_sparse_kernel_checks(torch)
         launches, serving, model = phase_main_path(torch, ops)
         del model
         torch.cuda.empty_cache()
@@ -1548,6 +2034,9 @@ def main():
         opt_launches = {"fused_adam": fa_launches["fused_adam"],
                         **{n: o["launches"] for n, o in others.items()}}
         kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)
+        sparse_launches, sparse, sparse_errs = phase_sparse_main_path(torch)
+        kernels += phase_sparse_timing(torch, sparse_launches, sparse_errs,
+                                       sparse)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1557,6 +2046,7 @@ def main():
     log(json.dumps({"training_fused_adam": fused_adam,
                     "other_fused_optimizers": others,
                     "checkpoint": checkpoint}))
+    log(json.dumps({"sparse_attention": sparse}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,353 @@
+"""The port's block-sparse attention (K16-K19) on CPU tensors against the
+JAX package's (``deepspeed_tpu.ops.sparse_attention``), whose Pallas
+kernels run in interpret mode here (their own CPU route).
+
+* Layouts: the port's copy of the five config classes builds the same
+  layouts, bit for bit (BigBird and Variable draw from
+  ``random.Random(seed)`` in the same order).
+* Kernels: the plain K16/K17 forward (O and LSE) against the JAX
+  ``_bs_fwd`` with and without the LSE, and the autograd Function's dQ,
+  dK, dV (plain K18/K19 from the LSE and δ) against ``jax.vjp`` of the
+  JAX ``block_sparse_attention``.
+* Edges: S not a multiple of the block, rows with no active block,
+  layouts per head and shared, the masked-dense path's extras.
+
+Inputs come from ``numpy.random.default_rng`` and feed both packages in
+float32 (B 2, H 2, S 64-128, hd 32, block 16, as the JAX tests).
+
+Tolerances: 2e-5 (abs and rel) for the forward — both sides take the
+same float32 softmax over at most 128 keys, the JAX kernels one block at
+a time with an online softmax, the plain version in one pass, so results
+move by a few float32 ulps of values up to ~10. 1e-4 for the gradients —
+three more float32 products (dP, dS, then dQ/dK/dV) over the same keys
+in another order.
+"""
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.sparse_attention import block_sparse_kernel as jax_bs
+from deepspeed_tpu.ops.sparse_attention import sparse_self_attention as jax_ssa
+from deepspeed_tpu.ops.sparse_attention import sparsity_config as jax_sc
+from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
+from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention \
+    as port_ssa
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as port_sc
+
+pytestmark = pytest.mark.torch_port
+
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+B, H, HD, BLOCK = 2, 2, 32, 16
+
+# (class name, kwargs) of the layouts the kernel tests walk; every one
+# has rows of different lengths, and Fixed unidirectional the diagonal
+LAYOUTS = [
+    ("FixedSparsityConfig", dict(num_local_blocks=2, num_global_blocks=1,
+                                 attention="unidirectional")),
+    ("BigBirdSparsityConfig", dict(num_random_blocks=1,
+                                   num_sliding_window_blocks=2,
+                                   num_global_blocks=1)),
+    ("BSLongformerSparsityConfig", dict(num_sliding_window_blocks=3,
+                                        global_block_indices=[0])),
+    ("VariableSparsityConfig", dict(num_random_blocks=1,
+                                    local_window_blocks=[1, 2],
+                                    global_block_indices=[0, 3],
+                                    attention="unidirectional")),
+]
+
+# wider coverage for the layout-equality test
+CONFIGS = [
+    ("DenseSparsityConfig", {}),
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=1,
+                                 attention="unidirectional")),
+    ("FixedSparsityConfig", dict(num_local_blocks=2, num_global_blocks=1,
+                                 horizontal_global_attention=True,
+                                 num_different_global_patterns=2)),
+    ("BSLongformerSparsityConfig", dict(num_sliding_window_blocks=3,
+                                        global_block_indices=[0, 2],
+                                        global_block_end_indices=[1, 4],
+                                        attention="unidirectional")),
+    ("BigBirdSparsityConfig", dict(num_random_blocks=2,
+                                   num_sliding_window_blocks=3,
+                                   num_global_blocks=1, seed=7)),
+    ("VariableSparsityConfig", dict(num_random_blocks=1,
+                                    local_window_blocks=[1, 2, 4],
+                                    global_block_indices=[0, 5])),
+]
+
+
+def _configs(name, kw, heads=H, block=BLOCK, **extra):
+    kw = dict(kw, **extra)
+    return (getattr(jax_sc, name)(num_heads=heads, block=block, **kw),
+            getattr(port_sc, name)(num_heads=heads, block=block, **kw))
+
+
+def _qkv(S, seed, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, H, S, HD)).astype(np.float32)
+            for _ in range(n)]
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+def _jax_fwd(q, k, v, layout, want_lse):
+    """The JAX forward pallas call (``_bs_fwd``), interpret mode."""
+    layout = np.ascontiguousarray(np.broadcast_to(
+        layout, (q.shape[1],) + layout.shape[1:]))
+    out, lse = jax_bs._bs_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jax_bs._StaticArr(layout),
+        jax_bs._StaticArr(jax_bs.build_fetch_table(layout)), BLOCK,
+        1.0 / np.sqrt(q.shape[-1]), q.shape[2], want_lse=want_lse)
+    return np.asarray(out), None if lse is None else np.asarray(lse)[..., 0]
+
+
+# --------------------------------------------------------------------- #
+# layouts
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("seq_len", [64, 128, 256])
+@pytest.mark.parametrize("name,kw", CONFIGS,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(CONFIGS)])
+def test_layouts_identical_to_jax(name, kw, seq_len, per_head):
+    jcfg, pcfg = _configs(name, kw, heads=4,
+                          different_layout_per_head=per_head)
+    a = np.asarray(jcfg.make_layout(seq_len))
+    b = pcfg.make_layout(seq_len)
+    assert b.dtype == a.dtype and b.shape == a.shape
+    assert np.array_equal(a, b)
+
+
+def test_layout_rejects_seq_len_off_the_block():
+    _, pcfg = _configs("FixedSparsityConfig", {})
+    with pytest.raises(ValueError, match="not divisible"):
+        pcfg.make_layout(40)
+
+
+def test_fetch_table_matches_jax():
+    rng = np.random.default_rng(3)
+    layout = rng.random((3, 7, 9)) < 0.3
+    layout[1, 2] = False                                    # an empty row
+    np.testing.assert_array_equal(bs.build_fetch_table(layout),
+                                  jax_bs.build_fetch_table(layout))
+
+
+def test_tables_list_active_blocks_and_share_one_head():
+    _, pcfg = _configs("BigBirdSparsityConfig", LAYOUTS[1][1], heads=4)
+    layout = pcfg.make_layout(128)                           # heads equal
+    tables = bs.prepare_layout(layout, BLOCK, 4, "cpu")
+    assert tables.num_layout_heads == 1
+    assert bs.prepare_layout(layout, BLOCK, 4, "cpu") is tables
+    assert tables.active_blocks(4) == 4 * int(layout[0].sum())
+    rp, cols = tables.row_ptr.numpy(), tables.cols.numpy()
+    rpt, colst = tables.row_ptr_t.numpy(), tables.cols_t.numpy()
+    for i in range(tables.nq):
+        assert list(cols[rp[i]:rp[i + 1]]) == list(np.nonzero(layout[0, i])[0])
+        assert (list(colst[rpt[i]:rpt[i + 1]])
+                == list(np.nonzero(layout[0, :, i])[0]))
+    _, per = _configs("BigBirdSparsityConfig", LAYOUTS[1][1], heads=4,
+                      different_layout_per_head=True)
+    assert bs.prepare_layout(per.make_layout(128), BLOCK, 4,
+                             "cpu").num_layout_heads == 4
+
+
+# --------------------------------------------------------------------- #
+# kernels: plain versions against the Pallas kernels
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("name,kw", LAYOUTS, ids=[n for n, _ in LAYOUTS])
+def test_forward_matches_pallas_kernels(name, kw, per_head):
+    """K16 (O, LSE) and K17 (O) plain versions against ``_bs_fwd`` with
+    and without the LSE."""
+    S = 128
+    _, pcfg = _configs(name, kw, different_layout_per_head=per_head)
+    layout = pcfg.make_layout(S)
+    q, k, v = _qkv(S, seed=S, n=3)
+    tables = bs.prepare_layout(layout, BLOCK, H, "cpu")
+    o, lse = bs.block_sparse_fwd(*_t(q, k, v), tables)
+    o_j, lse_j = _jax_fwd(q, k, v, layout, want_lse=True)
+    np.testing.assert_allclose(o.numpy(), o_j, **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, **FWD_TOL)
+    o2 = bs.block_sparse_fwd_nolse(*_t(q, k, v), tables)
+    o2_j, _ = _jax_fwd(q, k, v, layout, want_lse=False)
+    np.testing.assert_allclose(o2.numpy(), o2_j, **FWD_TOL)
+
+
+@pytest.mark.parametrize("name,kw", LAYOUTS, ids=[n for n, _ in LAYOUTS])
+def test_gradients_match_jax_grad(name, kw):
+    """O, dQ, dK and dV of the autograd Function (K16, then K18 and K19
+    from the LSE and δ) against ``jax.vjp`` of the JAX
+    ``block_sparse_attention`` (its custom_vjp's Pallas dq/dkv kernels)."""
+    S = 96
+    _, pcfg = _configs(name, kw)
+    layout = pcfg.make_layout(S)
+    q, k, v, do = _qkv(S, seed=7)
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jax_bs.block_sparse_attention(a, b, c, layout, BLOCK),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = vjp(jnp.asarray(do))
+    qkv = [x.requires_grad_() for x in _t(q, k, v)]
+    out = bs.block_sparse_attention(*qkv, layout, BLOCK)
+    grads = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               **FWD_TOL)
+    for g, g_j in zip(grads, grads_j):
+        np.testing.assert_allclose(g.numpy(), np.asarray(g_j), **GRAD_TOL)
+
+
+def test_seq_len_off_the_block_grid():
+    """S = 88 with block 16 (a partial last block of 8 keys and rows) and
+    a per-head layout: padding in the reference, masking in the port."""
+    S, nb = 88, 6
+    rng = np.random.default_rng(11)
+    layout = rng.random((H, nb, nb)) < 0.5
+    layout[:, np.arange(nb), np.arange(nb)] = True
+    q, k, v, do = _qkv(S, seed=12)
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jax_bs.block_sparse_attention(a, b, c, layout, BLOCK),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = vjp(jnp.asarray(do))
+    qkv = [x.requires_grad_() for x in _t(q, k, v)]
+    out = bs.block_sparse_attention(*qkv, layout, BLOCK)
+    assert tuple(out.shape) == (B, H, S, HD)
+    grads = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               **FWD_TOL)
+    for g, g_j in zip(grads, grads_j):
+        np.testing.assert_allclose(g.numpy(), np.asarray(g_j), **GRAD_TOL)
+
+
+def test_rows_with_no_active_block_emit_zeros():
+    """An empty q-block row gives O = 0 and LSE = -1e30 (the JAX test of
+    the same name), and no gradient reaches its queries or flows from it;
+    a key block no row attends gets dK = dV = 0."""
+    S = 48
+    layout = np.zeros((1, 3, 3), bool)
+    layout[0, 0, 0] = layout[0, 2, 0] = layout[0, 2, 1] = True  # row 1 empty
+    q, k, v, do = _qkv(S, seed=5)
+    tables = bs.prepare_layout(layout, BLOCK, H, "cpu")
+    o, lse = bs.block_sparse_fwd(*_t(q, k, v), tables)
+    assert torch.all(o[:, :, 16:32] == 0) and torch.any(o[:, :, :16] != 0)
+    assert torch.all(lse[:, :, 16:32] == -1e30)
+    out_j = jax_bs.block_sparse_attention(*map(jnp.asarray, (q, k, v)),
+                                          layout, BLOCK)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out_j), **FWD_TOL)
+    qkv = [x.requires_grad_() for x in _t(q, k, v)]
+    grads = torch.autograd.grad(bs.block_sparse_attention(*qkv, layout,
+                                                          BLOCK),
+                                qkv, torch.from_numpy(do))
+    assert torch.all(grads[0][:, :, 16:32] == 0)
+    assert torch.all(grads[1][:, :, 32:] == 0)
+    assert torch.all(grads[2][:, :, 32:] == 0)
+
+
+def test_no_grad_call_takes_the_no_lse_forward(monkeypatch):
+    """Under ``torch.no_grad()``, or with no input requiring grad, the
+    forward is K17's (no LSE); with a gradient to take it is K16's."""
+    calls = []
+
+    def spy(name):
+        real = getattr(bs, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return real(*args, **kwargs)
+        return wrapped
+
+    for name in ("block_sparse_fwd", "block_sparse_fwd_nolse"):
+        monkeypatch.setattr(bs, name, spy(name))
+    _, pcfg = _configs(*LAYOUTS[0])
+    attn = port_ssa.SparseSelfAttention(pcfg)
+    q, k, v = _t(*_qkv(64, seed=1, n=3))
+    attn(q, k, v, use_kernel=True)
+    assert calls == ["block_sparse_fwd_nolse"]
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        attn(qg, k, v, use_kernel=True)
+    assert calls == ["block_sparse_fwd_nolse"] * 2
+    attn(qg, k, v, use_kernel=True).sum().backward()
+    assert calls[-1] == "block_sparse_fwd" and qg.grad is not None
+
+
+def test_layout_and_input_checks():
+    q = torch.zeros(B, H, 64, HD)
+    with pytest.raises(ValueError, match="layout heads 3"):
+        bs.block_sparse_attention(q, q, q, np.ones((3, 4, 4), bool), BLOCK)
+    with pytest.raises(ValueError, match="does not cover"):
+        bs.block_sparse_attention(q, q, q, np.ones((3, 3), bool), BLOCK)
+    # a device with no kernel and no plain route raises, never falls back
+    meta = torch.empty(B, H, 64, 64, device="meta")
+    tables = bs.prepare_layout(np.ones((4, 4), bool), BLOCK, H, "meta")
+    with pytest.raises(ValueError, match="runs on CUDA or CPU"):
+        bs.block_sparse_fwd(meta, meta, meta, tables)
+
+
+# --------------------------------------------------------------------- #
+# SparseSelfAttention: the kernel path and the masked-dense path
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("name,kw", LAYOUTS[:2], ids=[n for n, _ in
+                                                      LAYOUTS[:2]])
+def test_kernel_path_matches_masked_dense(name, kw):
+    jcfg, pcfg = _configs(name, kw)
+    q, k, v = _qkv(128, seed=2, n=3)
+    attn = port_ssa.SparseSelfAttention(pcfg)
+    out = attn(*_t(q, k, v), use_kernel=True)
+    dense = attn(*_t(q, k, v))
+    dense_j = jax_ssa.SparseSelfAttention(jcfg)(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(dense.numpy(), np.asarray(dense_j), **FWD_TOL)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), **FWD_TOL)
+
+
+@pytest.mark.parametrize("kpm_mode,mask_mode", [("add", "mul"), ("mul", "add"),
+                                                ("add", "add"),
+                                                ("mul", "mul")])
+def test_dense_path_extras_match_jax(kpm_mode, mask_mode):
+    """rpe, key_padding_mask and attn_mask in each mode, on the
+    masked-dense path, against the JAX dense path."""
+    S = 64
+    jcfg, pcfg = _configs(*LAYOUTS[1])
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(S, seed=4, n=3)
+    rpe = rng.normal(size=(H, S, S)).astype(np.float32)
+    if kpm_mode == "add":
+        kpm = np.where(rng.random((B, S)) < 0.2, -1e4, 0.0).astype(np.float32)
+    else:
+        kpm = (rng.random((B, S)) > 0.2).astype(np.float32)
+    if mask_mode == "mul":
+        am = rng.uniform(0.5, 1.5, size=(S, S)).astype(np.float32)
+    else:
+        am = rng.normal(size=(S, S)).astype(np.float32)
+    kw = dict(key_padding_mask_mode=kpm_mode, attn_mask_mode=mask_mode)
+    ref = jax_ssa.SparseSelfAttention(jcfg, **kw)(
+        *map(jnp.asarray, (q, k, v)), rpe=jnp.asarray(rpe),
+        key_padding_mask=jnp.asarray(kpm), attn_mask=jnp.asarray(am))
+    out = port_ssa.BertSparseSelfAttention(pcfg, **kw)(
+        *_t(q, k, v), rpe=torch.from_numpy(rpe),
+        key_padding_mask=torch.from_numpy(kpm), attn_mask=torch.from_numpy(am))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FWD_TOL)
+
+
+def test_kernel_path_refuses_the_extras():
+    _, pcfg = _configs(*LAYOUTS[0])
+    q = torch.zeros(B, H, 64, HD)
+    with pytest.raises(ValueError, match="plain layout only"):
+        port_ssa.SparseSelfAttention(pcfg)(q, q, q, rpe=torch.zeros(64, 64),
+                                           use_kernel=True)
+
+
+def test_bigbird_draws_match_python_random():
+    """BigBird's random blocks come from ``random.Random(seed)``: the
+    port's layout changes with the seed exactly as the JAX one does."""
+    for seed in (0, 1, random.Random(5).randrange(1000)):
+        jcfg, pcfg = _configs("BigBirdSparsityConfig",
+                              dict(num_random_blocks=3, seed=seed), heads=3,
+                              different_layout_per_head=True)
+        assert np.array_equal(pcfg.make_layout(256),
+                              np.asarray(jcfg.make_layout(256)))
