@@ -80,9 +80,44 @@ non-zero before the last line is printed:
  15. time K16-K19 at that shape beside their bound, their plain versions,
      SDPA with the expanded boolean token mask (timing only) and K1's
      causal dense forward (for scale); print the sparse results' line and
-     the ``kernels`` JSON line (serving, training, optimizer and sparse
-     kernels);
- 16. print ``{"ok": true, "device": {...}}`` as the last line.
+     the ``kernels`` JSON line (serving, training, optimizer, sparse and
+     quantizer kernels, 18 in all);
+ 16. (after phase 13) hold the quantizer kernels against their plain
+     versions, bit for bit (NaN equal to NaN): K8a ``quantize_int8`` and
+     K9a ``quant_pack_wire(bits=8)`` (and K9a's bytes equal to K8a's), K8b
+     ``dequantize_int8`` and K10a ``unpack_dequant_wire`` (int8, and int4
+     from the plain K9b's bytes) to float32, bfloat16 and float16, on edge
+     batches (group sizes 2, 64, 256, 1000, 1024, 4096; float32, bfloat16
+     and float16 inputs, aligned and one element off; a zero, a
+     half-step, a subnormal, a NaN and an infinity group and an off-grid
+     tail: the zero and subnormal groups must get scale 1, the NaN group
+     NaN and the infinity group inf, each with q 0); then K6 and K7 at
+     page 128 against their plain versions;
+ 17. (after phase 5, on phase 4's model) weight-only int8 serving:
+     ``quantize_params(bits=8)`` on the llama3-8B state must launch K8a
+     once per quantized leaf (11: the JAX rule takes the stacked norms
+     too); every leaf's q and scales bitwise equal to the plain version
+     and |w - dq| <= s/2 (up to float32 rounding); ``dequantize_params``
+     to bfloat16 must launch K8b once per leaf, bitwise equal to its plain
+     version; ``generate`` on the dequantized weights (phase 4's prompts,
+     every token in range; the share of greedy tokens equal to the bf16
+     run's is printed, not gated); int8 bytes below 0.55 x bf16, int4
+     (legacy plain ops on the card, no kernel launch) below 0.6 x int8;
+     K8a and K8b timed on the ``[32, 4096, 14336]`` leaf;
+ 18. disaggregated prefill at llama3-8B width: engine P (page 64)
+     prefills the 8 prompts less their last tokens; each sequence goes
+     ``export_kv`` -> ``to_wire`` -> ``from_wire(device="cuda")`` ->
+     ``import_kv`` into engine D (page 128) on the fp32 and the int8 wire;
+     K9a and K10a must launch once per int8 shipment, the int8 wire equal
+     the plain K9a's bytes and K10a's rows the plain version's, the error
+     stay within ``int8_error_bound``, fp32 rows read back from D equal
+     the shipped ones; D and P put the last tokens and decode: the
+     fp32-shipped logits and greedy stream must equal P's bit for bit
+     (the int8 stream's agreement is printed); the frame bytes and the
+     hand-off of the 1,024-token prompt (export, ``to_wire``,
+     ``from_wire``, import; median of 3) are printed, and K9a and K10a
+     timed on its rows; the quantization results' line is printed;
+ 19. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -582,7 +617,7 @@ def phase_main_path(torch, ops):
         f"max abs {float(diff.abs().max()):.3e}, argmax agree {agree:.2f}")
     check(rel <= 5e-2, f"paged vs gather logits differ: rel {rel}")
     torch.cuda.synchronize()
-    return launches, serving, model
+    return launches, serving, model, prompts, first_out
 
 
 def phase_timing(torch, ops, shapes, launches, errs):
@@ -1980,6 +2015,606 @@ def phase_sparse_timing(torch, launches, errs, results):
     return kernels
 
 
+# --------------------------------------------------------------------- #
+# int8 quantization: K8a, K8b, K9a, K10a
+# --------------------------------------------------------------------- #
+QUANT_SOURCE = "deepspeed_tpu_torch/csrc/quantizer.cu"
+QUANT_REPLACES = {
+    "quantize_int8": "deepspeed_tpu/ops/quantizer/quantizer.py:29",
+    "dequantize_int8": "deepspeed_tpu/ops/quantizer/quantizer.py:64",
+    "quant_pack_wire": "deepspeed_tpu/ops/quantizer/quantizer.py:140",
+    "unpack_dequant_wire": "deepspeed_tpu/ops/quantizer/quantizer.py:212",
+}
+QUANT_LIBRARY = ("none: no single PyTorch call computes group-wise max-abs "
+                 "int8 quantization or its dequantize "
+                 "(torch.quantize_per_channel is affine with given scales)")
+# edge batches: every group size of the CPU test, and 4096 (one CUDA block
+# a group instead of one warp)
+QUANT_GROUP_SIZES = (2, 64, 256, 1000, 1024, 4096)
+QUANT_GROUP = 256                  # quantize_params' and the wire's groups
+QUANT_CHUNK = 1 << 20              # groups a plain-version comparison takes
+# |w - dq| <= s/2 up to the float32 rounding of x/s and of q*s, each at
+# most 2**-24 relative of a value <= 127*s: s/2 * (1 + 2**-15) bounds both
+DQ_SLACK = 1.0 + 2.0 ** -15
+HANDOFF_BLOCK = 128                # the decode engine's page (prefill: 64)
+HANDOFF_TIMED = 3                  # timed hand-offs of the 1,024-token prompt
+
+
+def same_bits(torch, a, b):
+    """Bitwise equality of two tensors of one dtype and shape. NaNs equal
+    NaNs: the card writes its canonical NaN where the CPU keeps a payload,
+    and the bits of a NaN carry no value."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(a.masked_fill(na, 0).view(ints),
+                            b.masked_fill(nb, 0).view(ints)))
+
+
+def max_abs(torch, a, b):
+    """Largest |a - b| over the values that are not NaN in both."""
+    d = (a.float() - b.float()).abs()
+    return float(d.nan_to_num(0.0).max()) if d.numel() else 0.0
+
+
+def quant_edge_batch(torch, gen, gs, dtype):
+    """The CPU test's edge batch on the card: a group of ordinary values,
+    one of zeros, one of exact half quantization steps, one of subnormals,
+    one holding a NaN, one holding an infinity, then a tail of gs // 3 + 1
+    values off the group grid; made in float32 and cast to ``dtype``."""
+    dev = DEVICE
+
+    def randn(n):
+        return torch.randn(n, generator=gen, device=dev)
+
+    amax = torch.tensor(127.0 * 0.25, device=dev)
+    step = amax * (torch.ones((), device=dev) / torch.tensor(127.0,
+                                                             device=dev))
+    k = torch.randint(-126, 126, (gs,), generator=gen, device=dev) + 0.5
+    half = k * step
+    half[0] = amax
+    sub = torch.where(torch.rand(gs, generator=gen, device=dev) < 0.5,
+                      -3e-39, 3e-39)
+    nan, inf = randn(gs), randn(gs)
+    nan[gs // 2] = float("nan")
+    inf[-1] = float("inf")
+    return torch.cat([randn(gs), torch.zeros(gs, device=dev), half, sub,
+                      nan, inf, randn(gs // 3 + 1)]).to(dtype)
+
+
+def phase_quant_kernel_checks(torch, ops):
+    """K8a, K9a, K8b and K10a against their plain versions on the card, bit
+    for bit, on edge batches: group sizes 2-4096, float32, bfloat16 and
+    float16 inputs, each at a 16-byte aligned address (the vector path)
+    and one element off it (the scalar path); K8b and K10a write float32,
+    bfloat16 and float16, cut to the input's size; K10a's int4 branch
+    reads the plain K9b's bytes. Then K6 and K7 at page 128, the decode
+    engine's page in the handoff, against their plain versions."""
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    n_checks = 0
+    for gs in QUANT_GROUP_SIZES:
+        for dtype in (f32, bf16, f16):
+            base = quant_edge_batch(torch, gen, gs, dtype)
+            n = base.numel()
+            buf = torch.empty(n + 8, dtype=dtype, device=DEVICE)
+            for off in (0, 1):
+                x = buf[off:off + n]
+                x.copy_(base)
+                tag = f"gs {gs} {str(dtype)[6:]} offset {off}"
+                q, s = qz.quantize_int8(x, gs)
+                qr, sr = qz.quantize_int8_reference(x, gs)
+                check(same_bits(torch, q, qr) and same_bits(torch, s, sr),
+                      f"K8a differs from its plain version ({tag})")
+                s1 = s[:, 0]
+                check(bool(s1[1] == 1 and s1[3] == 1 and torch.isnan(s1[4])
+                           and torch.isinf(s1[5])
+                           and not q[[1, 3, 4, 5]].any()),
+                      f"K8a edge groups wrong ({tag}): scales "
+                      f"{s1[:6].tolist()}")
+                w, ws = qz.quant_pack_wire(x, 8, gs)
+                wr, wsr = qz.quant_pack_wire_reference(x, 8, gs)
+                check(same_bits(torch, w, wr) and same_bits(torch, ws, wsr)
+                      and torch.equal(w, q),
+                      f"K9a differs from its plain version or K8a ({tag})")
+                n_checks += 3
+                for odt in (f32, bf16, f16):
+                    out = qz.dequantize_int8(q, s, shape=(n,), dtype=odt)
+                    ref = qz.dequantize_int8_reference(q, s, shape=(n,),
+                                                       dtype=odt)
+                    check(same_bits(torch, out, ref),
+                          f"K8b to {odt} differs from its plain version "
+                          f"({tag})")
+                    out = qz.unpack_dequant_wire(w, ws, 8, shape=(n,),
+                                                 dtype=odt)
+                    ref = qz.unpack_dequant_wire_reference(
+                        w, ws, 8, shape=(n,), dtype=odt)
+                    check(same_bits(torch, out, ref),
+                          f"K10a int8 to {odt} differs from its plain "
+                          f"version ({tag})")
+                    n_checks += 2
+                    if gs % 2:
+                        continue
+                    w4, s4 = qz._quant_pack4_reference(x, gs)
+                    out = qz.unpack_dequant_wire(w4, s4, 4, shape=(n,),
+                                                 dtype=odt)
+                    ref = qz.unpack_dequant_wire_reference(
+                        w4, s4, 4, shape=(n,), dtype=odt)
+                    check(same_bits(torch, out, ref),
+                          f"K10a int4 to {odt} differs from its plain "
+                          f"version ({tag})")
+                    n_checks += 1
+    torch.cuda.synchronize()
+    log(f"check quantizer kernels: {n_checks} bitwise checks on edge "
+        f"batches (group sizes {QUANT_GROUP_SIZES}, f32/bf16/f16, aligned "
+        f"and misaligned) passed")
+
+    # K6/K7 take the page size at run time; hold them at page 128
+    KV, G, hd, ps = 8, 4, 128, HANDOFF_BLOCK
+    NB = 2048 // ps
+    S = 8
+    q, pages, kvl, pt, cu = paged_inputs(
+        torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB, n_pages=S * NB + 1,
+        q_lens=[1, 1, 200, 48, 0, 0, 7, 0],
+        kv_lens=[129, 257, 712, 48, 0, 0, 1031, 0], dtype=torch.bfloat16,
+        pad_tokens=6)
+    kw = dict(num_kv_heads=KV)
+    _compare(torch, "ragged_paged_attention bf16 page 128",
+             ops.ragged_paged_attention(q, pages, kvl, pt, cu, **kw),
+             ops.ragged_paged_attention_reference(q, pages, kvl, pt, cu,
+                                                  **kw),
+             BF16_ATOL, BF16_RTOL)
+    q, pages, kvl, pt, _ = paged_inputs(
+        torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB, n_pages=S * NB + 1,
+        q_lens=None, kv_lens=[160, 288, 1056, 33, 0, 128, 256, 2047],
+        dtype=torch.bfloat16)
+    _compare(torch, "decode_paged_attention bf16 page 128",
+             ops.decode_paged_attention(q, pages, kvl, pt, **kw),
+             ops.decode_attend_dense(q, pages, kvl, pt, **kw), BF16_ATOL,
+             BF16_RTOL)
+    torch.cuda.synchronize()
+    return n_checks
+
+
+def _quant_counters(qz, zero=False):
+    fns = {"quantize_int8": qz.quantize_int8,
+           "dequantize_int8": qz.dequantize_int8,
+           "quant_pack_wire": qz.quant_pack_wire,
+           "unpack_dequant_wire": qz.unpack_dequant_wire}
+    if zero:
+        for f in fns.values():
+            f.launches = 0
+    return {name: f.launches for name, f in fns.items()}
+
+
+def _quant_leaf_checks(torch, qz, name, w, node, deq=None):
+    """One quantized leaf against the plain versions, QUANT_CHUNK groups at
+    a time (groups are independent, so a slice of whole groups is exact):
+    K8a's q and scales bit for bit, |w - dq| <= s/2, and, with ``deq``,
+    K8b's bfloat16 output bit for bit. → (largest |kernel - plain| of the
+    output checked, largest |w - dq| / s)."""
+    q, s = node["__q__"], node["__scale__"]
+    flat = w.reshape(-1)
+    gs = q.shape[1]
+    worst = err = 0.0
+    for g0 in range(0, q.shape[0], QUANT_CHUNK):
+        g1 = min(g0 + QUANT_CHUNK, q.shape[0])
+        xs = flat[g0 * gs:min(g1 * gs, flat.numel())]
+        if deq is None:
+            qr, sr = qz.quantize_int8_reference(xs, gs)
+            check(same_bits(torch, q[g0:g1], qr)
+                  and same_bits(torch, s[g0:g1], sr),
+                  f"K8a differs from its plain version on {name}, groups "
+                  f"{g0}:{g1}")
+            err = max(err, max_abs(torch, q[g0:g1], qr),
+                      max_abs(torch, s[g0:g1], sr))
+            del qr, sr
+            dq = qz.dequantize_int8_reference(q[g0:g1], s[g0:g1],
+                                              shape=(xs.numel(),))
+            step = s[g0:g1].expand(-1, gs).reshape(-1)[:xs.numel()]
+            ratio = (xs.float() - dq).abs() / step
+            worst = max(worst, float(ratio.max()))
+            check(worst <= 0.5 * DQ_SLACK,
+                  f"{name}: |w - dq| = {worst} s > s/2")
+            del dq, step, ratio
+        else:
+            ref = qz.dequantize_int8_reference(q[g0:g1], s[g0:g1],
+                                               shape=(xs.numel(),),
+                                               dtype=torch.bfloat16)
+            got = deq.reshape(-1)[g0 * gs:g0 * gs + xs.numel()]
+            check(same_bits(torch, got, ref),
+                  f"K8b differs from its plain version on {name}, groups "
+                  f"{g0}:{g1}")
+            err = max(err, max_abs(torch, got, ref))
+            del ref
+    return err, worst
+
+
+def quant_work(name, n, groups, elem_in, elem_out):
+    """(bytes, flops) of one call on n values in ``groups`` groups: the
+    input read once, the output written once, 4 bytes a scale; ~4 float32
+    operations a value (max-abs, divide, round, clip; or convert and
+    multiply)."""
+    scales = 4 * groups
+    if name in ("quantize_int8", "quant_pack_wire"):
+        return n * elem_in + n + scales, 4 * n
+    return n + scales + n * elem_out, 2 * n
+
+
+def phase_quant_serving(torch, ops, model, prompts, bf16_out):
+    """Weight-only int8 serving at llama3-8B width: ``quantize_params``
+    (K8a once per quantized leaf), every leaf against the plain version,
+    ``dequantize_params`` to bfloat16 (K8b once per leaf), ``generate`` on
+    the dequantized weights, the int8 and int4 byte counts; then K8a and
+    K8b timed on the largest leaf. → (results, timing rows)."""
+    from deepspeed_tpu_torch import (CausalLM, InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.quantization import (
+        dequantize_params, quantize_params, quantized_memory_bytes)
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+
+    cfg = model.config
+    state = {n: t.detach() for n, t in model.state_dict().items()}
+    bf16_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    expected = sorted(n for n, t in state.items() if t.is_floating_point()
+                      and t.dim() >= 2 and t.numel() >= 1 << 14)
+    _quant_counters(qz, zero=True)
+    t0 = time.perf_counter()
+    q8, meta = quantize_params(state, group_size=QUANT_GROUP, bits=8)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    launches = {"quantize_int8": _quant_counters(qz)["quantize_int8"]}
+    got = sorted(n for n, v in q8.items() if isinstance(v, dict))
+    log(f"quantize_params(bits=8): {meta['quantized_leaves']} leaves in "
+        f"{quant_s:.3f} s; K8a launches {launches['quantize_int8']} "
+        f"(expected {len(expected)}: {expected})")
+    check(got == expected and meta["quantized_leaves"] == len(expected)
+          and launches["quantize_int8"] == len(expected),
+          f"quantize_params quantized {got} with "
+          f"{launches['quantize_int8']} K8a launches, not {expected}")
+    worst = 0.0
+    errs = {"quantize_int8": 0.0, "dequantize_int8": 0.0}
+    for name in expected:
+        node = q8[name]
+        check(node["__dtype__"] == "bfloat16" and node["__bits__"] == 8
+              and node["__shape__"] == tuple(state[name].shape),
+              f"{name}: quantized node meta {node['__dtype__']}, "
+              f"{node['__shape__']}")
+        err, ratio = _quant_leaf_checks(torch, qz, name, state[name], node)
+        errs["quantize_int8"] = max(errs["quantize_int8"], err)
+        worst = max(worst, ratio)
+    torch.cuda.synchronize()
+    log(f"check K8a per leaf: q and scales bitwise equal to the plain "
+        f"version on all {len(expected)} leaves; max |w - dq| / s = "
+        f"{worst:.6f} (limit 0.5 * (1 + 2**-15))")
+
+    _quant_counters(qz, zero=True)
+    t0 = time.perf_counter()
+    deq = dequantize_params(q8, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    dequant_s = time.perf_counter() - t0
+    launches["dequantize_int8"] = _quant_counters(qz)["dequantize_int8"]
+    check(launches["dequantize_int8"] == len(expected),
+          f"dequantize_params launched K8b {launches['dequantize_int8']} "
+          f"times, not {len(expected)}")
+    for name in expected:
+        check(deq[name].dtype == torch.bfloat16
+              and deq[name].shape == state[name].shape,
+              f"{name}: dequantized {deq[name].dtype} "
+              f"{tuple(deq[name].shape)}")
+        err, _ = _quant_leaf_checks(torch, qz, name, state[name], q8[name],
+                                    deq=deq[name])
+        errs["dequantize_int8"] = max(errs["dequantize_int8"], err)
+    torch.cuda.synchronize()
+    log(f"dequantize_params(bfloat16): {dequant_s:.3f} s, K8b launches "
+        f"{launches['dequantize_int8']}, bitwise equal to the plain version "
+        f"on every leaf")
+
+    engine = InferenceEngineV2(CausalLM(cfg, deq),
+                               RaggedInferenceEngineConfig(), device=DEVICE)
+    log("generate on the int8-dequantized weights:")
+    out, gen_launches, run = _run_generate(torch, ops, engine, prompts,
+                                           len(bf16_out[0]), cfg.vocab_size)
+    agree = sum(a == b for o, r in zip(out, bf16_out) for a, b in zip(o, r))
+    total = sum(len(o) for o in out)
+    log(f"greedy tokens equal to the bf16 run's: {agree}/{total} "
+        f"({agree / total:.3f}; not a gate: random weights leave tiny "
+        f"logit margins)")
+    del engine, deq
+    _free(torch)
+
+    q8_bytes = quantized_memory_bytes(q8)
+    before = _quant_counters(qz)
+    t0 = time.perf_counter()
+    q4, _ = quantize_params(state, group_size=QUANT_GROUP, bits=4)
+    torch.cuda.synchronize()
+    int4_s = time.perf_counter() - t0
+    q4_bytes = quantized_memory_bytes(q4)
+    del q4
+    _free(torch)
+    log(f"weight bytes: bf16 {bf16_bytes}, int8 {q8_bytes} "
+        f"({q8_bytes / bf16_bytes:.4f} x bf16; limit 0.55), int4 {q4_bytes} "
+        f"({q4_bytes / q8_bytes:.4f} x int8; limit 0.6; plain legacy ops on "
+        f"the card, {int4_s:.3f} s)")
+    check(q8_bytes < 0.55 * bf16_bytes, "int8 weights not below 0.55 x bf16")
+    check(q4_bytes < 0.6 * q8_bytes, "int4 weights not below 0.6 x int8")
+    check(_quant_counters(qz) == before, "the legacy int4 path launched a "
+          "quantizer kernel")
+
+    # timing on the largest leaf
+    name = "layers.gate_proj.kernel"
+    leaf, node = state[name], q8[name]
+    q, s = node["__q__"], node["__scale__"]
+    n, groups = leaf.numel(), q.shape[0]
+    rows = []
+    specs = {
+        "quantize_int8": (lambda: qz.quantize_int8(leaf, QUANT_GROUP),
+                          lambda: qz.quantize_int8_reference(leaf,
+                                                             QUANT_GROUP),
+                          2, 1),
+        "dequantize_int8": (
+            lambda: qz.dequantize_int8(q, s, shape=leaf.shape,
+                                       dtype=torch.bfloat16),
+            lambda: qz.dequantize_int8_reference(q, s, shape=leaf.shape,
+                                                 dtype=torch.bfloat16),
+            1, 2),
+    }
+    for kname, (kern, plain, e_in, e_out) in specs.items():
+        ms = cuda_ms(torch, kern, 10)
+        plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+        _free(torch)
+        nbytes, flops = quant_work(kname, n, groups, e_in, e_out)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+        log(f"time {kname} on {name} {tuple(leaf.shape)} bf16: {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}, {nbytes / ms / 1e6:.1f} GB/s; "
+            f"plain {plain_ms:.3f} ms)")
+        rows.append({"name": kname, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                     "flops": flops,
+                     "shape": {"leaf": name, "dims": list(leaf.shape),
+                               "group_size": QUANT_GROUP,
+                               "dtype": "bf16"}})
+    del q8, state, leaf, node, q, s
+    _free(torch)
+    results = {"quantized_leaves": len(expected), "launches": launches,
+               "max_abs_err": errs,
+               "quantize_s": quant_s, "dequantize_s": dequant_s,
+               "int4_quantize_s": int4_s, "bf16_bytes": bf16_bytes,
+               "int8_bytes": q8_bytes, "int4_bytes": q4_bytes,
+               "max_err_over_scale": worst,
+               "greedy_agree_with_bf16": agree / total,
+               "generate": run, "generate_launches": gen_launches}
+    return results, rows
+
+
+def _frame_wire(frame):
+    """(wire bytes, scale bytes) of an int8 DSKV1 frame."""
+    import struct
+
+    (hlen,) = struct.unpack(">I", frame[5:9])
+    header = json.loads(frame[9:9 + hlen])
+    payload = frame[9 + hlen:]
+    nw = header["groups"] * header["group_size"]
+    return payload[:nw], payload[nw:]
+
+
+def phase_handoff(torch, model, prompts, new_tokens):
+    """Disaggregated prefill at llama3-8B width: engine P (page 64) prefills
+    the 8 prompts less their last tokens; each sequence goes export_kv →
+    to_wire(w) → from_wire(device="cuda") → import_kv into engine D (page
+    128), for w in fp32 and int8; D puts the last tokens and decodes
+    ``new_tokens``, as P does on its own sequences. K9a and K10a launch
+    once per int8 shipment; the int8 wire equals the plain K9a's bytes,
+    K10a's rows the plain version's, the int8 error stays in
+    int8_error_bound, fp32 rows read back from D equal the shipped ones,
+    and the fp32-shipped logits and stream equal P's bit for bit. Then the
+    hand-off of the 1,024-token prompt is timed, and K9a and K10a on its
+    rows. → (results, timing rows)."""
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2 import kv_ship
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+
+    cfg = model.config
+    src = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                            device=DEVICE)
+    budget = src.config.max_tokens
+    uids = list(range(len(prompts)))
+
+    def prefill(uid, toks):
+        for i in range(0, len(toks), budget):
+            src.put([uid], [toks[i:i + budget]])
+
+    t0 = time.perf_counter()
+    for uid, p in zip(uids, prompts):
+        prefill(uid, p[:-1])
+    torch.cuda.synchronize()
+    log(f"handoff: P (page {src.config.block_size}) prefilled "
+        f"{sum(len(p) - 1 for p in prompts)} tokens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gs = kv_ship.INT8_GROUP
+    streams, frame_bytes, worst = {}, {}, 0.0
+    errs = {"quant_pack_wire": 0.0, "unpack_dequant_wire": 0.0}
+    _quant_counters(qz, zero=True)
+    dst = {}
+    for wire in kv_ship.WIRE_FORMATS:
+        dst[wire] = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            block_size=HANDOFF_BLOCK), device=DEVICE)
+        frame_bytes[wire] = 0
+        for uid, p in zip(uids, prompts):
+            ship = kv_ship.export_kv(src, uid, p[:-1])
+            frame = kv_ship.to_wire(ship, wire)
+            back = kv_ship.from_wire(frame, device=DEVICE)
+            check(back.rows.device.type == torch.device(DEVICE).type,
+                  "from_wire rebuilt the rows off the card")
+            check(kv_ship.import_kv(dst[wire], back, uid),
+                  f"import_kv ({wire}, uid {uid}) found no free pages")
+            frame_bytes[wire] += len(frame)
+            if wire == "fp32":
+                again = kv_ship.export_kv(dst[wire], uid, p[:-1])
+                check(same_bits(torch, again.rows, ship.rows),
+                      f"fp32 rows read back from D differ (uid {uid})")
+                continue
+            wr, sr = qz.quant_pack_wire_reference(ship.rows, 8, gs)
+            w_bytes, s_bytes = _frame_wire(frame)
+            check(w_bytes == wr.cpu().numpy().tobytes()
+                  and s_bytes == sr.cpu().numpy().tobytes(),
+                  f"int8 wire differs from the plain K9a's (uid {uid})")
+            w_k = torch.frombuffer(bytearray(w_bytes), dtype=torch.int8)
+            errs["quant_pack_wire"] = max(errs["quant_pack_wire"], max_abs(
+                torch, w_k, wr.reshape(-1).cpu()))
+            ref = qz.unpack_dequant_wire_reference(
+                wr, sr, 8, shape=tuple(ship.rows.shape))
+            check(same_bits(torch, back.rows, ref),
+                  f"K10a rows differ from the plain version (uid {uid})")
+            errs["unpack_dequant_wire"] = max(errs["unpack_dequant_wire"],
+                                              max_abs(torch, back.rows, ref))
+            diff = (back.rows - ship.rows).abs().reshape(-1)
+            bound = kv_ship.int8_error_bound(sr, gs, diff.numel())
+            check(bool((diff <= bound).all()),
+                  f"int8 error above int8_error_bound (uid {uid})")
+            worst = max(worst, float((diff / bound).max()))
+            del wr, sr, ref, diff, bound
+        del ship, back
+    launches = _quant_counters(qz)
+    launches = {k: launches[k] for k in errs}
+    log(f"shipped {len(prompts)} sequences on each wire; launches {launches}; "
+        f"frames fp32 {frame_bytes['fp32']} B, int8 {frame_bytes['int8']} B "
+        f"({frame_bytes['int8'] / frame_bytes['fp32']:.4f} x); int8 error "
+        f"<= {worst:.4f} x int8_error_bound")
+    check(launches == {"quant_pack_wire": len(prompts),
+                       "unpack_dequant_wire": len(prompts)},
+          f"K9a/K10a launches {launches}, not one per int8 shipment")
+    # P continues its own sequences (the uninterrupted run), each D the
+    # shipped ones: the last tokens in one put, then a fused decode
+    logits = {}
+    for wire, eng in (("uninterrupted", src), *dst.items()):
+        logits[wire] = eng.put(uids, [[p[-1]] for p in prompts])
+        seeds = [int(t) for t in logits[wire].argmax(-1).tolist()]
+        toks = eng.decode_batch(uids, seeds, new_tokens - 1)
+        streams[wire] = [[seeds[i]] + [int(t) for t in toks[:, i]]
+                         for i in range(len(uids))]
+        check(all(0 <= t < cfg.vocab_size for o in streams[wire] for t in o),
+              f"{wire}: a token out of range")
+    # the fp32 wire carries P's bf16 rows exactly, and K6/K7 walk the
+    # context in chunks of 64 positions whatever the page: D's logits and
+    # greedy stream are P's own, bit for bit
+    check(same_bits(torch, logits["fp32"], logits["uninterrupted"])
+          and streams["fp32"] == streams["uninterrupted"],
+          "fp32-shipped continuation differs from P's uninterrupted run")
+    del dst, eng, logits
+    _free(torch)
+    total = sum(len(o) for o in streams["fp32"])
+    agree = {w: sum(a == b for o, r in zip(streams[w],
+                                           streams["uninterrupted"])
+                    for a, b in zip(o, r)) / total
+             for w in kv_ship.WIRE_FORMATS}
+    log(f"greedy streams of D equal to P's uninterrupted run: fp32 "
+        f"{agree['fp32']:.3f} (a gate: bit for bit), int8 "
+        f"{agree['int8']:.3f} (not a gate: random weights leave tiny logit "
+        f"margins)")
+
+    # the hand-off of the 1,024-token prompt, timed
+    long_uid, long_prompt = 100, prompts[-1]
+    prefill(long_uid, long_prompt)
+    timing = {}
+    for wire in kv_ship.WIRE_FORMATS:
+        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            block_size=HANDOFF_BLOCK), device=DEVICE)
+        laps = []
+        for rep in range(HANDOFF_TIMED + 1):
+            lap = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ship = kv_ship.export_kv(src, long_uid, long_prompt)
+            torch.cuda.synchronize()
+            lap["export_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frame = kv_ship.to_wire(ship, wire)
+            lap["to_wire_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = kv_ship.from_wire(frame, device=DEVICE)
+            torch.cuda.synchronize()
+            lap["from_wire_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            check(kv_ship.import_kv(eng, back, rep), "timed import refused")
+            torch.cuda.synchronize()
+            lap["import_s"] = time.perf_counter() - t0
+            lap["frame_bytes"] = len(frame)
+            eng.flush([rep])
+            if rep:                              # the first is a warm-up
+                laps.append(lap)
+        timing[wire] = {k: sorted(lap[k] for lap in laps)[len(laps) // 2]
+                        for k in laps[0]}
+        log(f"hand-off of {ship.n_tokens} tokens, {wire} (median of "
+            f"{HANDOFF_TIMED}): export {timing[wire]['export_s'] * 1e3:.2f} "
+            f"ms, to_wire {timing[wire]['to_wire_s'] * 1e3:.2f} ms, "
+            f"from_wire {timing[wire]['from_wire_s'] * 1e3:.2f} ms, import "
+            f"{timing[wire]['import_s'] * 1e3:.2f} ms; frame "
+            f"{timing[wire]['frame_bytes']} B")
+        del eng
+    rows_t = ship.rows
+    n = rows_t.numel()
+    groups = -(-n // gs)
+    w, s = qz.quant_pack_wire(rows_t, 8, gs)
+    specs = {
+        "quant_pack_wire": (lambda: qz.quant_pack_wire(rows_t, 8, gs),
+                            lambda: qz.quant_pack_wire_reference(rows_t, 8,
+                                                                 gs), 4, 1),
+        "unpack_dequant_wire": (
+            lambda: qz.unpack_dequant_wire(w, s, 8, shape=rows_t.shape),
+            lambda: qz.unpack_dequant_wire_reference(w, s, 8,
+                                                     shape=rows_t.shape),
+            1, 4),
+    }
+    rows = []
+    for kname, (kern, plain, e_in, e_out) in specs.items():
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 5, warmup=1)
+        nbytes, flops = quant_work(kname, n, groups, e_in, e_out)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+        log(f"time {kname} on the {ship.n_tokens}-token shipment "
+            f"{tuple(rows_t.shape)} f32: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}, {nbytes / ms / 1e6:.1f} GB/s; plain {plain_ms:.3f} ms)")
+        rows.append({"name": kname, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                     "flops": flops,
+                     "shape": {"rows": list(rows_t.shape),
+                               "group_size": gs, "dtype": "f32"}})
+    del src, ship, back, rows_t, w, s
+    _free(torch)
+    results = {"decode_page": HANDOFF_BLOCK, "prefill_page": 64,
+               "launches": launches, "max_abs_err": errs,
+               "frame_bytes": frame_bytes,
+               "int8_err_over_bound": worst,
+               "agree_with_uninterrupted": agree,
+               "timed_1024": timing}
+    return results, rows
+
+
+def quant_kernel_entries(rows, launches, errs):
+    """The ``kernels`` JSON entries of K8a, K8b, K9a and K10a."""
+    out = []
+    for row in rows:
+        name = row["name"]
+        out.append({"name": name, "route": "cuda", "source": QUANT_SOURCE,
+                    "replaces": QUANT_REPLACES[name],
+                    "launches": launches[name], "max_abs_err": errs[name],
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": None,
+                    "library": QUANT_LIBRARY,
+                    **{k: row[k] for k in ("shape", "bytes", "flops")}})
+    return out
+
+
 def main_shapes():
     """The shapes the main path hands the kernels (llama3_8b widths, the
     default engine: page 64, max_ctx 2048 → 32 pages per sequence, a pool
@@ -2020,12 +2655,18 @@ def main():
         train_errs = phase_train_kernel_checks(torch)
         opt_errs = phase_optimizer_kernel_checks(torch)
         phase_sparse_kernel_checks(torch)
-        launches, serving, model = phase_main_path(torch, ops)
-        del model
-        torch.cuda.empty_cache()
+        quant_checks = phase_quant_kernel_checks(torch, ops)
+        launches, serving, model, prompts, bf16_out = phase_main_path(
+            torch, ops)
         kernels = phase_timing(torch, ops, shapes, launches, errs)
         del shapes                       # the serving timing inputs
         torch.cuda.empty_cache()
+        quant, quant_rows = phase_quant_serving(torch, ops, model, prompts,
+                                                bf16_out)
+        handoff, handoff_rows = phase_handoff(torch, model, prompts,
+                                              len(bf16_out[0]))
+        del model
+        _free(torch)
         train_launches, training = phase_train_main_path(torch)
         fa_launches, fused_adam = phase_fused_adam_main_path(torch, training)
         others = phase_other_fused(torch, fused_adam["losses"][0])
@@ -2037,6 +2678,10 @@ def main():
         sparse_launches, sparse, sparse_errs = phase_sparse_main_path(torch)
         kernels += phase_sparse_timing(torch, sparse_launches, sparse_errs,
                                        sparse)
+        kernels += quant_kernel_entries(
+            quant_rows + handoff_rows,
+            {**quant["launches"], **handoff["launches"]},
+            {**quant["max_abs_err"], **handoff["max_abs_err"]})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2047,6 +2692,9 @@ def main():
                     "other_fused_optimizers": others,
                     "checkpoint": checkpoint}))
     log(json.dumps({"sparse_attention": sparse}))
+    log(json.dumps({"quantization": {"edge_checks": quant_checks,
+                                     "weight_only": quant,
+                                     "handoff": handoff}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

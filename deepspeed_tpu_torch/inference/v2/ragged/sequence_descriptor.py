@@ -18,6 +18,8 @@ class DSSequenceDescriptor:
     seen_tokens: int = 0                 # tokens already in the KV cache
     in_flight_tokens: int = 0            # tokens scheduled this forward
     blocks: List[int] = dataclasses.field(default_factory=list)
+    #: attested tokens of an imported KV prefix (``kv_ship.import_kv``)
+    input_ids: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def cur_allocated_blocks(self) -> int:
