@@ -117,7 +117,47 @@ non-zero before the last line is printed:
      hand-off of the 1,024-token prompt (export, ``to_wire``,
      ``from_wire``, import; median of 3) are printed, and K9a and K10a
      timed on its rows; the quantization results' line is printed;
- 19. print ``{"ok": true, "device": {...}}`` as the last line.
+ 19. (last) hold the data-parallel kernels against their plain versions:
+     K9b ``quant_pack_wire(bits=4)`` bit for bit on the int8 phase's edge
+     batches (even group sizes) and on a 525 M-element float32 leaf of the
+     embedding gradient's shape (2**20 groups at a time); K10b
+     ``unpack_dequant_mean`` bit for bit on n = 2, 3, 4 peers of edge-batch
+     wires (int4 and int8, with and without LoCo's addend) and on stacks of
+     2 and 4 chunks of that leaf's wire; LoCo's residual (K10a's variant
+     ``wire_residual``) bit for bit on the edge batches' int4 and int8
+     wires and on that leaf's int4 wire; K11 ``shard_major_matmul`` at the
+     down projection's shapes (x [4096, 14336] @ w [14336, 4096], bf16, 2
+     shards) and float32 edges, K12 ``_gathered_dequant_matmul`` at x
+     [4096, 14336] against 2 int4 and int8 shards of [7168, 4096] and an
+     odd float32 edge, each within an elementwise limit set from the
+     roundings' statistics (``matmul_limit``), with planted faults (a
+     32-wide K tile dropped; K11's sums carried in bfloat16) read against
+     the same limits and required to exceed them; each timed at those
+     shapes beside its bound, its plain version and, for K11,
+     ``torch.matmul`` (timing only);
+ 20. the data-parallel world: ``launcher.run_local_world`` spawns 2 gloo
+     ranks, both on cuda:0 (NCCL takes one rank a GPU; every gloo
+     collective the port uses takes CUDA tensors, none is staged through
+     the host), after the parent built the kernels. Each rank:
+     ``initialize`` at llama3-8B width cut to 2 layers (1.486 B params),
+     bf16, AdamW, ``zero_quantized_gradients``, micro-batch 1 x 2048
+     tokens a rank, 3 ``train_batch`` steps with the counters set to 0
+     just before and read just after (K9b, K10b, K10a must launch), the
+     ranks' parameter bits compared after every step (digests; the full
+     bits after the last), step time and wire bytes from the facade's
+     record; then one more backward, every leaf exchanged on the wire
+     against its exact mean (``all_reduce``) within the wire's bound; the
+     fused-gemm entry points ``gemm_reduce_scatter`` and
+     ``gemm_all_gather_matmul`` on the down projection's shapes, wire 0, 8
+     and 4 (K11 and K12 must launch; the fp edges equal K11 and the plain
+     collective bit for bit, the int edges within their half-step
+     bounds); then qgZ + LoCo at ``WORLD_SPEC["loco_layers"]`` layers, 2
+     steps (K9b, K10b, K10a and LoCo's residual kernel must launch; the
+     ranks' parameters bit-identical after every step). Each rank's peak
+     memory is printed beside the card's name and power limit; the
+     ``kernels`` line lists all 22 TPU kernels' ports and LoCo's residual
+     variant of K10a, 23 rows;
+ 21. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -2615,6 +2655,742 @@ def quant_kernel_entries(rows, launches, errs):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the data-parallel world: K9b, K10b, K11, K12
+# --------------------------------------------------------------------- #
+CM_SOURCE = "deepspeed_tpu_torch/csrc/collective_matmul.cu"
+WORLD_KERNELS = {   # name in the kernels line → (source, TPU kernel)
+    "quant_pack_wire_int4": (
+        QUANT_SOURCE, "deepspeed_tpu/ops/quantizer/quantizer.py:148"),
+    "unpack_dequant_mean": (
+        QUANT_SOURCE, "deepspeed_tpu/ops/quantizer/quantizer.py:250"),
+    # K10a's kernel as LoCo's residual runs it: unpack_dequant_wire and the
+    # subtraction of deepspeed_tpu/runtime/comm/fused_wire.py:126,141
+    "wire_residual": (
+        QUANT_SOURCE, "deepspeed_tpu/ops/quantizer/quantizer.py:212"),
+    "shard_major_matmul": (
+        CM_SOURCE, "deepspeed_tpu/kernels/fused_collective_matmul.py:99"),
+    "gathered_dequant_matmul": (
+        CM_SOURCE, "deepspeed_tpu/kernels/fused_collective_matmul.py:205"),
+}
+WORLD_SIZE = 2                 # two gloo ranks sharing the one card
+WORLD_AXES = ("data",)
+# what each rank of the world runs: llama3-8B width (``model``: the
+# TransformerConfig preset) at 2 layers (~33 GB a rank), 3 steps of qgZ;
+# qgZ + LoCo (~9 GB more a rank) at the 1 layer that fits, 2 steps; the
+# fused-gemm calls at the down projection's shapes
+WORLD_SPEC = {"device": "cuda", "model": "llama3_8b", "layers": 2,
+              "steps": 3, "loco_layers": 1, "loco_steps": 2, "seq": 2048,
+              "gemm": (4096, 14336, 4096)}
+EMBED_SHAPE = (128256, 4096)   # the largest gradient leaf: 525 M float32
+# the qgZ wire's bound on |exchanged - exact mean| a group: stage 1 moves
+# each rank's value by at most its group's half step (A/7/2, A the
+# largest max|g| of the group over the ranks) and so their mean; stage 2
+# re-quantizes the mean with a half step of at most (M + A/14)/7/2, M the
+# exact mean's max; the float32 rounding of x/s and q*s adds <= 2**-15 of
+# that (as DQ_SLACK)
+WIRE_SLACK = 1.0 + 2.0 ** -10
+
+
+def _world_counters(zero=False):
+    """The launch counters of the world's kernels (and of K1-K4, which the
+    model runs), set to 0 first with ``zero``."""
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+
+    counters = {   # name → (wrapper, the attribute that counts)
+        "quant_pack_wire_int4": (qz.quant_pack_wire, "launches4"),
+        "quant_pack_wire": (qz.quant_pack_wire, "launches"),
+        "unpack_dequant_mean": (qz.unpack_dequant_mean, "launches"),
+        "unpack_dequant_wire": (qz.unpack_dequant_wire, "launches"),
+        "wire_residual": (qz.wire_residual, "launches"),
+        "shard_major_matmul": (fcm.shard_major_matmul, "launches"),
+        "gathered_dequant_matmul": (fcm._gathered_dequant_matmul,
+                                    "launches"),
+        **{name: (f, "launches") for name, f in _train_counters().items()}}
+    if zero:
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+    return {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+
+
+def _wire_bound(torch, g, exact, n, q_max=7, group=QUANT_GROUP):
+    """Per group of ``group`` values of a flat leaf: the bound on |the
+    quantized mean - the exact mean| (WIRE_SLACK's comment), with A the
+    groups' max|g| over the world's ranks. → [groups]."""
+    from deepspeed_tpu_torch import comm
+
+    def amax(t):
+        t = t.reshape(-1).float()
+        pad = (-t.numel()) % (n * group)
+        if pad:
+            t = torch.cat([t, t.new_zeros(pad)])
+        return t.view(-1, group).abs().amax(dim=1)
+
+    a = comm.all_reduce(amax(g), comm.ReduceOp.MAX)
+    half1 = a / q_max / 2
+    return (half1 + (amax(exact) + half1) / q_max / 2) * WIRE_SLACK
+
+
+def _param_digest(torch, params):
+    """Two int64 sums of each leaf's float32 bits (plain and position-
+    weighted, wrapping), a digest two ranks compare after every step."""
+    rows = []
+    for p in params.values():
+        bits = p.detach().reshape(-1).view(torch.int32)
+        s1 = torch.zeros((), dtype=torch.int64, device=p.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=p.device)
+        for i in range(0, bits.numel(), 1 << 24):
+            c = bits[i:i + (1 << 24)].to(torch.int64)
+            s1 += c.sum()
+            s2 += (c * torch.arange(i + 1, i + 1 + c.numel(),
+                                    device=p.device)).sum()
+        rows.append(torch.stack([s1, s2]))
+    return torch.stack(rows)
+
+
+def _ranks_agree(torch, params, full=False):
+    """Whether every rank holds the same parameter bits: the digests of
+    all ranks, and with ``full`` each leaf broadcast from rank 0 and
+    compared bit for bit."""
+    from deepspeed_tpu_torch import comm
+
+    d = _param_digest(torch, params)
+    every = comm.all_gather_into_tensor(d[None]).view(WORLD_SIZE, *d.shape)
+    same = bool((every == every[0]).all())
+    if full:
+        for p in params.values():
+            mine = p.detach().clone()
+            comm.broadcast(mine, src=0)
+            same &= bool(torch.equal(mine.view(torch.int32),
+                                     p.detach().view(torch.int32)))
+            del mine
+    return same
+
+
+def _world_train(torch, rank, spec, layers, steps, loco, exchange_check):
+    """``initialize`` → ``train_batch`` on this rank of the world: the
+    spec's model width cut to ``layers`` (remat), random float32 masters
+    from the same seed on every rank, bf16, AdamW,
+    ``zero_quantized_gradients`` (and ``zeropp_loco``), micro-batch 1 x
+    the spec's ``seq`` tokens a rank. The counters are set to 0 just
+    before the steps and read just after."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import CausalLM, TransformerConfig, comm
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.runtime.comm.fused_wire import inv_n
+    from deepspeed_tpu_torch.runtime.comm_path import quantized_allreduce
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(getattr(TransformerConfig, spec["model"])(),
+                              num_layers=layers, remat=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = CausalLM(cfg, init_params(cfg, gen, torch.float32, DEVICE),
+                     trainable=True)
+    ds_config = {
+        "train_micro_batch_size_per_gpu": 1,
+        "optimizer": {"type": "AdamW",
+                      "params": {"lr": 3e-4, "weight_decay": 0.1}},
+        "gradient_clipping": 1.0,
+        "zero_optimization": {"stage": 0, "zero_quantized_gradients": True,
+                              "zeropp_loco": loco},
+        "bf16": {"enabled": True},
+    }
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=ds_config, device=DEVICE)
+    del model
+    n_params = sum(p.numel() for p in engine.params.values())
+    rng = np.random.default_rng(SEED + 7)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(engine.train_batch_size(), spec["seq"]))).to(
+            DEVICE)} for _ in range(steps)]
+    torch.cuda.synchronize()
+    comm.barrier()
+    _world_counters(zero=True)
+    losses, step_s, wire, agree, ops = [], [], [], [], set()
+    for batch in batches:
+        comm.reset_comm_record()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rec = comm.comm_record()
+        ops |= {f"{e['op']} {e['dtype']}" for e in rec}
+        wire.append({"int8": sum(e["bytes"] for e in rec
+                                 if e["dtype"] == "int8"),
+                     "float32": sum(e["bytes"] for e in rec
+                                    if e["dtype"] == "float32"),
+                     "collectives": len(rec)})
+        agree.append(_ranks_agree(torch, engine.params,
+                                  full=len(losses) == steps))
+    launches = _world_counters()
+    check(all(agree), f"rank {rank}: the ranks' parameters differ after a "
+                      f"qgZ step ({agree})")
+    check(all(math.isfinite(v) for v in losses),
+          f"rank {rank}: non-finite losses {losses}")
+    out = {"layers": layers, "params": n_params, "losses": losses,
+           "step_s": step_s, "wire_bytes": wire, "launches": launches,
+           "collectives": sorted(ops),
+           "bit_identical_after_each_step": agree,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if exchange_check:
+        # where one more step's time goes: this rank's forward and
+        # backward, the exchange (K9b, K10b, K10a and gloo), the update
+        ctx = engine._dp_step.ctx
+        marks = [time.perf_counter()]
+        _, grads = ctx.local_loss_and_grads(engine._rank_rows(batches[-1]))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads, _ = ctx.exchange_grads(grads, engine.comm_error)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        engine._apply_update(grads, unscale=False)
+        engine._zero_grads()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        out["step_breakdown_ms"] = {
+            k: 1e3 * (b - a) for k, a, b in zip(
+                ("forward_backward", "exchange", "update"), marks,
+                marks[1:])}
+        check(_ranks_agree(torch, engine.params),
+              f"rank {rank}: the ranks' parameters differ after the "
+              f"broken-down step")
+    if loco:
+        res = engine.comm_error
+        out["loco_residual_abs_sum"] = float(sum(
+            e["worker"].abs().sum() + e["server"].abs().sum()
+            for e in res.values()))
+        check(len(res) == len(engine.params) and
+              out["loco_residual_abs_sum"] > 0,
+              f"rank {rank}: LoCo residuals missing or zero")
+        check(launches["wire_residual"] > 0,
+              f"rank {rank}: LoCo's residual kernel never launched")
+    if exchange_check:
+        # one more backward, then every leaf's gradient exchanged on the
+        # wire against its exact mean (all_reduce), within the wire bound
+        engine._zero_grads()
+        engine._loss_and_backward(engine._rank_rows(batches[-1])[0])
+        worst, err = 0.0, 0.0
+        for g in engine._grads().values():
+            exact = comm.all_reduce(g.detach().clone()).mul_(
+                inv_n(WORLD_SIZE))
+            q, _, _ = quantized_allreduce(g, WORLD_AXES, bits=4)
+            bound = _wire_bound(torch, g, exact, WORLD_SIZE)
+            diff = (q - exact).reshape(-1).abs()
+            pad = (-diff.numel()) % (WORLD_SIZE * QUANT_GROUP)
+            diff = torch.cat([diff, diff.new_zeros(pad)]).view(
+                -1, QUANT_GROUP)
+            worst = max(worst, float((diff / (bound[:, None] + 1e-30)).max()))
+            err = max(err, float(diff.max()))
+            del exact, q, bound, diff
+        engine._zero_grads()
+        check(worst <= 1.0, f"rank {rank}: the exchanged gradient is "
+                            f"{worst:.3f}x the wire's bound from the mean")
+        out["exchange_err_over_bound"] = worst
+        out["exchange_max_abs_err"] = err
+    del engine, batches
+    return out
+
+
+def _world_gemm(torch, rank, spec):
+    """The fused-gemm entry points on the down projection's shapes, wire
+    0, 8 and 4: ``gemm_reduce_scatter(x, w)`` (x this rank's [M, K], w the
+    same [K, N] on every rank) and ``gemm_all_gather_matmul(x, w_shard)``
+    (w_shard this rank's [K/2, N] rows), bf16. The counters are set to 0
+    before the six calls and read after them; then the fp edges against K11
+    followed by the plain collective, bit for bit, and the int edges
+    within their half-step bounds of the fp result."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+    from deepspeed_tpu_torch.runtime.comm import fused_gemm as fg
+    from deepspeed_tpu_torch.runtime.comm.fused_wire import inv_n
+
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = torch.bfloat16
+    M, K, N = spec["gemm"]
+    gx = torch.Generator(device=DEVICE).manual_seed(SEED + 50 + rank)
+    gw = torch.Generator(device=DEVICE).manual_seed(SEED + 49)
+    x = torch.randn(M, K, generator=gx, device=DEVICE).to(bf16)
+    w = (torch.randn(K, N, generator=gw, device=DEVICE) / K ** 0.5).to(bf16)
+    kk = K // WORLD_SIZE
+    w_shard = w[rank * kk:(rank + 1) * kk].contiguous()
+    torch.cuda.synchronize()
+    comm.barrier()
+    _world_counters(zero=True)
+    comm.reset_comm_record()
+    outs, ms = {}, {}
+    for bits in (0, 8, 4):
+        for name, call in (
+                ("gemm_reduce_scatter",
+                 lambda: fg.gemm_reduce_scatter(x, w, WORLD_AXES, bits)),
+                ("gemm_all_gather_matmul",
+                 lambda: fg.gemm_all_gather_matmul(x, w_shard, WORLD_AXES,
+                                                   bits))):
+            t0 = time.perf_counter()
+            outs[name, bits] = call()
+            torch.cuda.synchronize()
+            ms[f"{name} int{bits}"] = 1e3 * (time.perf_counter() - t0)
+    launches = _world_counters()
+    ops = sorted({f"{e['op']} {e['dtype']}" for e in comm.comm_record()})
+    for k in ("shard_major_matmul", "gathered_dequant_matmul"):
+        check(launches[k] > 0, f"rank {rank}: {k} never launched")
+    errs = {}
+    # fp edges: K11, then the plain collective
+    y = fcm.shard_major_matmul(x, w, WORLD_SIZE)
+    ref = comm.reduce_scatter_tensor(y) * inv_n(WORLD_SIZE)
+    check(same_bits(torch, outs["gemm_reduce_scatter", 0], ref),
+          f"rank {rank}: gemm_reduce_scatter int0 differs from K11 + "
+          f"reduce_scatter")
+    w_full = comm.all_gather_into_tensor(w_shard)
+    ref = fcm.shard_major_matmul(x, w_full, 1)
+    check(same_bits(torch, outs["gemm_all_gather_matmul", 0], ref),
+          f"rank {rank}: gemm_all_gather_matmul int0 differs from "
+          f"all_gather + K11")
+    # int edges: the half step of each exchanged value (epilogue) or of
+    # each dequantized weight (prologue), plus the bf16 roundings of both
+    # results
+    rows = M // WORLD_SIZE
+    fp = outs["gemm_reduce_scatter", 0].float()
+    for bits, q_max in ((8, 127), (4, 7)):
+        got = outs["gemm_reduce_scatter", bits].float()
+        a = comm.all_reduce(y.float().view(-1, QUANT_GROUP).abs().amax(1),
+                            comm.ReduceOp.MAX)
+        mine = a.view(WORLD_SIZE, -1)[rank]
+        limit = (mine / q_max / 2).repeat_interleave(QUANT_GROUP).view(
+            rows, N) + 2.0 ** -8 * (fp.abs() + got.abs())
+        errs[f"gemm_reduce_scatter int{bits}"] = _compare_limit(
+            torch, f"rank {rank} gemm_reduce_scatter int{bits}", got, fp,
+            limit, "half a step of the exchanged values + two bf16 ulps")
+    fp = outs["gemm_all_gather_matmul", 0].float()
+    xa = x.float().abs()
+    for bits in (8, 4):
+        got = outs["gemm_all_gather_matmul", bits].float()
+        wv, s = qz.quant_pack_wire(w_shard, bits, QUANT_GROUP)
+        half = comm.all_gather_into_tensor(s).expand(-1, QUANT_GROUP) / 2
+        half = half.reshape(WORLD_SIZE, -1)[:, :kk * N].reshape(K, N)
+        with torch.no_grad():
+            limit = (torch.matmul(xa, half) + K * 2.0 ** -23 * torch.matmul(
+                xa, w_full.float().abs()) + 2.0 ** -8 * (fp.abs()
+                                                         + got.abs()))
+        errs[f"gemm_all_gather_matmul int{bits}"] = _compare_limit(
+            torch, f"rank {rank} gemm_all_gather_matmul int{bits}", got, fp,
+            limit, "half a step of each weight x |x| + float32 sums + two "
+                   "bf16 ulps")
+        del wv, s, half, limit, got
+    torch.cuda.synchronize()
+    return {"launches": launches, "ms": ms, "max_abs_err": errs,
+            "collectives": ops,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _world_rank(rank, spec):
+    """One rank of the world (run by ``launcher.run_local_world``): the
+    kernels were built by the parent and are only loaded here."""
+    import torch
+
+    global DEVICE
+    DEVICE = spec["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if DEVICE == "cuda":
+        from deepspeed_tpu_torch.ops.op_builder import load_kernels
+
+        load_kernels()
+    out = {"rank": rank}
+    out["qgz"] = _world_train(torch, rank, spec, spec["layers"],
+                              spec["steps"], loco=False, exchange_check=True)
+    _free(torch)
+    out["fused_gemm"] = _world_gemm(torch, rank, spec)
+    _free(torch)
+    out["qgz_loco"] = _world_train(torch, rank, spec, spec["loco_layers"],
+                                   spec["loco_steps"], loco=True,
+                                   exchange_check=False)
+    _free(torch)
+    return out
+
+
+def phase_world(torch, spec=None, target=None):
+    """The data-parallel world on the one card: WORLD_SIZE gloo ranks on
+    cuda:0 (NCCL takes one rank a GPU), spawned by
+    ``launcher.run_local_world``. Each rank trains the qgZ path at
+    llama3-8B width, runs the fused-gemm entry points, then the qgZ + LoCo
+    path (``WORLD_SPEC``; ``spec`` and ``target`` replace it and
+    ``_world_rank`` for a rehearsal). → the ranks' results."""
+    from deepspeed_tpu_torch.launcher import run_local_world
+
+    _free(torch)
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "deepspeed_tpu_torch", "build", "world")
+    t0 = time.perf_counter()
+    try:
+        res = run_local_world(target or _world_rank, WORLD_SIZE,
+                              (spec or WORLD_SPEC,), store_dir=store,
+                              backend="gloo", threads=4, timeout_s=900)
+    except RuntimeError as e:
+        raise SmokeFailure(f"the {WORLD_SIZE}-rank world failed: {e}")
+    wall = time.perf_counter() - t0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    for part in ("qgz", "qgz_loco"):
+        a, b = res[0][part], res[1][part]
+        check(a["losses"] == b["losses"],
+              f"{part}: the ranks' data-mean losses differ")
+        for r in res:
+            p = r[part]
+            launches = p["launches"]
+            for k in ("quant_pack_wire_int4", "unpack_dequant_mean",
+                      "unpack_dequant_wire"):
+                check(launches[k] > 0, f"{part} rank {r['rank']}: {k} "
+                                       f"never launched")
+            log(f"world {part} rank {r['rank']} ({p['layers']} layers, "
+                f"{p['params'] / 1e9:.3f} B params): losses {p['losses']}, "
+                f"step {[round(s * 1e3, 1) for s in p['step_s']]} ms, wire "
+                f"bytes a step {p['wire_bytes'][-1]}, launches "
+                f"{ {k: v for k, v in launches.items() if v} }, peak "
+                f"{p['max_memory_gb']:.2f} GB on {smi}; one step broken "
+                f"down {p.get('step_breakdown_ms')}")
+    for r in res:
+        g = r["fused_gemm"]
+        log(f"world fused_gemm rank {r['rank']}: ms {g['ms']}, launches "
+            f"{ {k: v for k, v in g['launches'].items() if v} }, peak "
+            f"{g['max_memory_gb']:.2f} GB")
+    used = sorted({c for r in res for p in ("qgz", "fused_gemm", "qgz_loco")
+                   for c in r[p]["collectives"]})
+    log(f"world: gloo ran {used} on {DEVICE} tensors in both ranks; the "
+        f"facade staged none through the host")
+    log(f"world: exchange err/bound {res[0]['qgz']['exchange_err_over_bound']:.3f} "
+        f"and {res[1]['qgz']['exchange_err_over_bound']:.3f}; the world "
+        f"took {wall:.1f} s")
+    return res
+
+
+# |kernel - plain| of a float32-accumulated product of K terms t_k: the
+# rounding of each result to its dtype (half an ulp of each: 2**-8 of its
+# size in bfloat16, 2**-24 in float32), plus the two float32 sums'
+# rounding errors. For zero-mean random terms those are random walks,
+# each about 0.4 * sqrt(K) * 2**-24 * ||t||_2 (||t||_2 over the output's K
+# products); ACC_SIGMAS of them stays far above the largest deviation of
+# the 16 M outputs, and far below what a real fault adds (the planted
+# faults below read many times their limit)
+ACC_SIGMAS = 16.0
+MATMUL_LIMIT = ("half an ulp of each result in its dtype + "
+                f"{ACC_SIGMAS:g} x sqrt(K) x 2**-24 x ||t||_2 (float32 sums "
+                "in another order)")
+
+
+def matmul_limit(torch, x, w, got, ref):
+    """The elementwise limit on |got - ref| for ``x @ w`` (MATMUL_LIMIT)."""
+    K = x.shape[1]
+    half_ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 2.0 ** -24
+    with torch.no_grad():
+        norm = torch.matmul(x.float().square(), w.float().square()).sqrt_()
+    return (half_ulp * (got.float().abs() + ref.float().abs())
+            + ACC_SIGMAS * math.sqrt(K) * 2.0 ** -24 * norm)
+
+
+def dropped_tile(torch, plain, x, k0=4096, width=32):
+    """A planted fault: ``plain`` on x with K columns [k0, k0 + width)
+    zeroed, as a kernel that skipped one K tile would compute."""
+    xd = x.clone()
+    xd[:, k0:k0 + width] = 0
+    return plain(xd)
+
+
+def bf16_sums(torch, x, w, width=32):
+    """A planted fault: x @ w with each 32-wide K tile's product rounded
+    to bfloat16 and the running sum carried in bfloat16, as a kernel that
+    accumulated in bfloat16 would compute."""
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.bfloat16,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], width):
+        acc += torch.matmul(x[:, k0:k0 + width], w[k0:k0 + width])
+    return acc
+
+
+def planted_fault(torch, name, fault, ref, limit):
+    """max |fault - ref| / limit, which must exceed 1: the limit would
+    catch the fault."""
+    worst = float(((fault.float() - ref.float()).abs() / limit).max())
+    log(f"check planted fault: {name} reads {worst:.1f}x the limit")
+    check(worst > 1.0, f"the limit would pass a planted fault ({name}, "
+                       f"{worst:.3f}x)")
+    return worst
+
+
+def world_kernel_checks(torch):
+    """K9b and K10b against their plain versions on the card, bit for bit,
+    on edge batches (K9b: every even group size of the int8 checks,
+    float32/bfloat16/float16, aligned and one element off; K10b: n = 2, 3
+    and 4 peers of edge-batch wires, int4 and int8, with and without the
+    LoCo addend) and on the embedding gradient leaf (K9b over the whole
+    leaf, K10b on stacks of n = 2 and 4 of its wire's chunks, QUANT_CHUNK
+    groups at a time); K11 and K12 at the down projection's shapes and at
+    edge shapes, within limits set from the roundings' statistics, and
+    planted faults read against those limits; LoCo's residual bit for bit
+    on the edge batches and on the leaf's int4 wire. Then each is timed
+    there. → (max abs errors, timing rows, planted faults' err/limit)."""
+    from deepspeed_tpu_torch.kernels import fused_collective_matmul as fcm
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    n_checks = 0
+    errs = {k: 0.0 for k in WORLD_KERNELS}
+    for gs in QUANT_GROUP_SIZES:
+        for dtype in (f32, bf16, f16):
+            base = quant_edge_batch(torch, gen, gs, dtype)
+            n = base.numel()
+            buf = torch.empty(n + 8, dtype=dtype, device=DEVICE)
+            for off in (0, 1):
+                x = buf[off:off + n]
+                x.copy_(base)
+                tag = f"gs {gs} {str(dtype)[6:]} offset {off}"
+                w, s = qz.quant_pack_wire(x, 4, gs)
+                wr, sr = qz.quant_pack_wire_reference(x, 4, gs)
+                check(same_bits(torch, w, wr) and same_bits(torch, s, sr),
+                      f"K9b differs from its plain version ({tag})")
+                s1 = s[:, 0]
+                check(bool(s1[1] == 1 and s1[3] == 1 and torch.isnan(s1[4])
+                           and torch.isinf(s1[5])
+                           and not w[[1, 3, 4, 5]].any()),
+                      f"K9b edge groups wrong ({tag})")
+                n_checks += 1
+        for n_peers in (2, 3, 4):
+            for bits in (4, 8):
+                peers = [qz.quant_pack_wire(
+                    quant_edge_batch(torch, gen, gs, f32), bits, gs)
+                    for _ in range(n_peers)]
+                wst = torch.stack([p[0] for p in peers])
+                sst = torch.stack([p[1] for p in peers])
+                add = torch.randn(wst.shape[1] * gs, generator=gen,
+                                  device=DEVICE) * 1e-3
+                for a in (None, add):
+                    got = qz.unpack_dequant_mean(wst, sst, bits, n_peers, a)
+                    ref = qz.unpack_dequant_mean_reference(wst, sst, bits,
+                                                           n_peers, a)
+                    check(same_bits(torch, got, ref),
+                          f"K10b differs from its plain version (gs {gs}, "
+                          f"n {n_peers}, int{bits}, add {a is not None})")
+                    n_checks += 1
+            for bits in (4, 8):
+                x = quant_edge_batch(torch, gen, gs, f32)
+                x = torch.cat([x, x.new_zeros((-x.numel()) % gs)])
+                w, s = qz.quant_pack_wire(x, bits, gs)
+                check(same_bits(torch, qz.wire_residual(x, w, s, bits),
+                                qz.wire_residual_reference(x, w, s, bits)),
+                      f"LoCo's residual kernel differs from its plain "
+                      f"version (gs {gs}, int{bits})")
+                n_checks += 1
+    log(f"check K9b/K10b/residual: {n_checks} bitwise checks on edge "
+        f"batches passed")
+
+    # the embedding gradient leaf, in full
+    leaf = torch.randn(EMBED_SHAPE, generator=gen, device=DEVICE)
+    leaf.mul_(torch.rand(EMBED_SHAPE[0], 1, generator=gen, device=DEVICE)
+              * 1e-3)
+    leaf = leaf.view(-1)
+    gs = QUANT_GROUP
+    w, s = qz.quant_pack_wire(leaf, 4, gs)
+    groups = w.shape[0]
+    for g0 in range(0, groups, QUANT_CHUNK):
+        g1 = min(g0 + QUANT_CHUNK, groups)
+        wr, sr = qz.quant_pack_wire_reference(leaf[g0 * gs:g1 * gs], 4, gs)
+        check(same_bits(torch, w[g0:g1], wr) and
+              same_bits(torch, s[g0:g1], sr),
+              f"K9b differs from its plain version on the embedding "
+              f"gradient leaf, groups {g0}:{g1}")
+        del wr, sr
+    stacks = {}
+    for n_peers in (2, 4):
+        wst = w.view(n_peers, groups // n_peers, -1)
+        sst = s.view(n_peers, groups // n_peers, 1)
+        got = qz.unpack_dequant_mean(wst, sst, 4, n_peers)
+        per = groups // n_peers
+        for g0 in range(0, per, QUANT_CHUNK):
+            g1 = min(g0 + QUANT_CHUNK, per)
+            ref = qz.unpack_dequant_mean_reference(wst[:, g0:g1],
+                                                   sst[:, g0:g1], 4, n_peers)
+            check(same_bits(torch, got[g0 * gs:g1 * gs], ref),
+                  f"K10b differs from its plain version on {n_peers} peers "
+                  f"of the leaf's wire, groups {g0}:{g1}")
+            del ref
+        stacks[n_peers] = (wst, sst)
+        del got
+    res = qz.wire_residual(leaf, w, s, 4)
+    for g0 in range(0, groups, QUANT_CHUNK):
+        g1 = min(g0 + QUANT_CHUNK, groups)
+        ref = qz.wire_residual_reference(leaf[g0 * gs:g1 * gs], w[g0:g1],
+                                         s[g0:g1], 4)
+        check(same_bits(torch, res[g0 * gs:g1 * gs], ref),
+              f"LoCo's residual kernel differs from its plain version on "
+              f"the leaf's int4 wire, groups {g0}:{g1}")
+        del ref
+    del res
+    torch.cuda.synchronize()
+    log(f"check K9b on the {EMBED_SHAPE} float32 gradient leaf, K10b on "
+        f"stacks of 2 and 4 of its chunks, LoCo's residual on its int4 "
+        f"wire: bit for bit")
+
+    # K11: the down projection, bf16, two shards; float32 and an odd edge
+    M, K, N = WORLD_SPEC["gemm"]
+    x = torch.randn(M, K, generator=gen, device=DEVICE).to(bf16)
+    wm = (torch.randn(K, N, generator=gen, device=DEVICE) / K ** 0.5).to(bf16)
+    got = fcm.shard_major_matmul(x, wm, WORLD_SIZE)
+    ref = fcm.matmul_reference(x, wm)
+    limit = matmul_limit(torch, x, wm, got, ref)
+    tag = "K11 shard_major_matmul bf16 [4096, 14336] @ [14336, 4096]"
+    errs["shard_major_matmul"] = _compare_limit(
+        torch, f"{tag} 2 shards", got, ref, limit, MATMUL_LIMIT)
+    faults = {"K11 with a 32-wide K tile dropped": dropped_tile(
+        torch, lambda xd: fcm.matmul_reference(xd, wm), x),
+              "K11 with its sums carried in bfloat16": bf16_sums(
+        torch, x, wm)}
+    planted = {name: planted_fault(torch, name, f, ref, limit)
+               for name, f in faults.items()}
+    del got, ref, limit, faults
+    for (m, k, nn, shards) in ((300, 72, 200, 3), (64, 4096, 40, 2)):
+        xe = torch.randn(m, k, generator=gen, device=DEVICE)
+        we = torch.randn(k, nn, generator=gen, device=DEVICE)
+        got = fcm.shard_major_matmul(xe, we, shards)
+        ref = fcm.matmul_reference(xe, we)
+        errs["shard_major_matmul"] = max(errs["shard_major_matmul"],
+                                         _compare_limit(
+            torch, f"K11 float32 [{m}, {k}] @ [{k}, {nn}] {shards} shards",
+            got, ref, matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
+    # K12: x against the two shards of the same weight on the int4 and
+    # int8 wires (the prologue's operands at world 2), and an odd edge
+    kk = K // WORLD_SIZE
+    k12 = {}
+    for bits in (4, 8):
+        wires = [qz.quant_pack_wire(wm[r * kk:(r + 1) * kk], bits, gs)
+                 for r in range(WORLD_SIZE)]
+        wst = torch.stack([a for a, _ in wires])
+        sst = torch.stack([b for _, b in wires])
+        got = fcm._gathered_dequant_matmul(x, wst, sst, bits, kk, N, bf16)
+        ref = fcm._gathered_dequant_matmul_reference(x, wst, sst, bits, kk,
+                                                     N, bf16)
+        deq = torch.cat([fcm.unpack_dequant_wire_values(
+            wst[r], sst[r], bits).reshape(-1)[:kk * N].reshape(kk, N)
+            for r in range(WORLD_SIZE)])
+        limit = matmul_limit(torch, x, deq, got, ref)
+        tag = (f"K12 gathered_dequant_matmul int{bits} [4096, 14336] x 2 "
+               f"shards of [7168, 4096]")
+        errs["gathered_dequant_matmul"] = max(
+            errs["gathered_dequant_matmul"], _compare_limit(
+                torch, tag, got, ref, limit, MATMUL_LIMIT))
+        name = f"K12 int{bits} with a 32-wide K tile dropped"
+        planted[name] = planted_fault(torch, name, dropped_tile(
+            torch, lambda xd: fcm._gathered_dequant_matmul_reference(
+                xd, wst, sst, bits, kk, N, bf16), x), ref, limit)
+        k12[bits] = (wst, sst)
+        del got, ref, deq, limit
+    xe = torch.randn(130, 300, generator=gen, device=DEVICE)
+    wires = [qz.quant_pack_wire(torch.randn(100 * 136, generator=gen,
+                                            device=DEVICE), 4, 200)
+             for _ in range(3)]           # a group size not a power of 2
+    wst = torch.stack([a for a, _ in wires])
+    sst = torch.stack([b for _, b in wires])
+    got = fcm._gathered_dequant_matmul(xe, wst, sst, 4, 100, 136, f32)
+    ref = fcm._gathered_dequant_matmul_reference(xe, wst, sst, 4, 100, 136,
+                                                 f32)
+    deq = torch.cat([fcm.unpack_dequant_wire_values(
+        wst[r], sst[r], 4).reshape(-1)[:100 * 136].reshape(100, 136)
+        for r in range(3)])
+    errs["gathered_dequant_matmul"] = max(
+        errs["gathered_dequant_matmul"], _compare_limit(
+            torch, "K12 float32 [130, 300] x 3 int4 shards of [100, 136], "
+                   "group 200",
+            got, ref, matmul_limit(torch, xe, deq, got, ref), MATMUL_LIMIT))
+    torch.cuda.synchronize()
+
+    # timing, each at the main path's shapes
+    rows = []
+    n_el = leaf.numel()
+    specs = {
+        "quant_pack_wire_int4": (
+            lambda: qz.quant_pack_wire(leaf, 4, gs),
+            lambda: qz.quant_pack_wire_reference(leaf, 4, gs), None,
+            n_el * 4 + n_el // 2 + 4 * groups, 4 * n_el, F32_FLOPS,
+            {"x": list(EMBED_SHAPE), "dtype": "f32", "group_size": gs}),
+        "unpack_dequant_mean": (
+            lambda: qz.unpack_dequant_mean(*stacks[2], 4, 2),
+            lambda: qz.unpack_dequant_mean_reference(*stacks[2], 4, 2),
+            None, groups * (gs // 2 + 4) + (groups // 2) * gs * 4,
+            2 * n_el, F32_FLOPS,
+            {"peers": 2, "wire": list(stacks[2][0].shape)}),
+        "wire_residual": (
+            lambda: qz.wire_residual(leaf, w, s, 4),
+            lambda: qz.wire_residual_reference(leaf, w, s, 4), None,
+            n_el * 4 + n_el // 2 + 4 * groups + 4 * n_el, 2 * n_el,
+            F32_FLOPS, {"x": list(EMBED_SHAPE), "dtype": "f32",
+                        "group_size": gs, "wire": "int4"}),
+        "shard_major_matmul": (
+            lambda: fcm.shard_major_matmul(x, wm, WORLD_SIZE),
+            lambda: fcm.matmul_reference(x, wm),
+            lambda: torch.matmul(x, wm),
+            2 * (M * K + K * N + M * N), 2 * M * K * N, BF16_FLOPS,
+            {"x": [M, K], "w": [K, N], "dtype": "bf16", "shards": 2}),
+        "gathered_dequant_matmul": (
+            lambda: fcm._gathered_dequant_matmul(x, *k12[4], 4, kk, N, bf16),
+            lambda: fcm._gathered_dequant_matmul_reference(
+                x, *k12[4], 4, kk, N, bf16), None,
+            2 * M * K + K * N // 2 + 4 * k12[4][1].numel() + 2 * M * N,
+            2 * M * K * N, F32_FLOPS,
+            {"x": [M, K], "shards": 2, "w_shard": [kk, N], "wire": "int4"}),
+    }
+    for name, (kern, plain, lib, nbytes, flops, peak, shape) in \
+            specs.items():
+        ms = cuda_ms(torch, kern, 10)
+        plain_ms = cuda_ms(torch, plain, 3, warmup=1)
+        lib_ms = cuda_ms(torch, lib, 10) if lib is not None else None
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        log(f"time {name} {shape}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}; plain {plain_ms:.3f} ms; library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'})")
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "bytes": nbytes, "flops": flops, "shape": shape})
+    del leaf, w, s, stacks, x, wm, k12
+    _free(torch)
+    return errs, rows, planted
+
+
+def world_kernel_entries(rows, res, errs):
+    """The ``kernels`` JSON entries of K9b, K10b, LoCo's residual, K11 and
+    K12: launches of rank 0's qgZ steps (K9b, K10b), qgZ + LoCo steps (the
+    residual) and fused-gemm calls (K11, K12)."""
+    launches = {**res[0]["qgz"]["launches"],
+                "wire_residual": res[0]["qgz_loco"]["launches"][
+                    "wire_residual"],
+                **{k: res[0]["fused_gemm"]["launches"][k]
+                   for k in ("shard_major_matmul", "gathered_dequant_matmul")}}
+    libs = {"quant_pack_wire_int4": QUANT_LIBRARY,
+            "unpack_dequant_mean": "none: no single PyTorch call unpacks, "
+                                   "dequantizes and averages n peers' wires",
+            "wire_residual": "none: no single PyTorch call unpacks an int4 "
+                             "wire and subtracts it in one rounding",
+            "shard_major_matmul": "torch.matmul(x, w)",
+            "gathered_dequant_matmul": "none: no single PyTorch call "
+                                       "multiplies by int4/int8 wire shards"}
+    out = []
+    for row in rows:
+        name = row["name"]
+        source, replaces = WORLD_KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"], "library": libs[name],
+                    **{k: row[k] for k in ("shape", "bytes", "flops")}})
+    return out
+
+
 def main_shapes():
     """The shapes the main path hands the kernels (llama3_8b widths, the
     default engine: page 64, max_ctx 2048 → 32 pages per sequence, a pool
@@ -2682,6 +3458,11 @@ def main():
             quant_rows + handoff_rows,
             {**quant["launches"], **handoff["launches"]},
             {**quant["max_abs_err"], **handoff["max_abs_err"]})
+        world_errs, world_rows, planted = world_kernel_checks(torch)
+        world = phase_world(torch)
+        kernels += world_kernel_entries(world_rows, world, world_errs)
+        check(len(kernels) == 23, f"{len(kernels)} kernels timed, not 23 "
+                                  f"(22 TPU kernels and LoCo's residual)")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2695,6 +3476,8 @@ def main():
     log(json.dumps({"quantization": {"edge_checks": quant_checks,
                                      "weight_only": quant,
                                      "handoff": handoff}}))
+    log(json.dumps({"data_parallel_world": world,
+                    "matmul_planted_faults_over_limit": planted}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,24 @@
 """Group-wise symmetric int8/int4 quantization for the PyTorch port
 (counterpart of ``deepspeed_tpu/ops/quantizer/quantizer.py``).
 
-Four kernels, written by hand in CUDA C++ for Hopper
+Six kernels, written by hand in CUDA C++ for Hopper
 (``csrc/quantizer.cu``), replace the JAX package's Pallas kernels:
 
   * :func:`quantize_int8` — K8a, replacing ``_quant8_kernel``;
   * :func:`dequantize_int8` — K8b, replacing ``_dequant8_kernel``;
   * :func:`quant_pack_wire` with ``bits=8`` — K9a, replacing
     ``_quant_pack8_kernel`` (K8a's math, written as the int8 wire);
+  * :func:`quant_pack_wire` with ``bits=4`` — K9b, replacing
+    ``_quant_pack4_kernel`` (scale ``max|x| * fl(1/7)``, clip ±7, the
+    half-split nibble pack);
   * :func:`unpack_dequant_wire` — K10a, replacing the kernel inside the
-    reference's ``unpack_dequant_wire`` (int8 and half-split int4).
+    reference's ``unpack_dequant_wire`` (int8 and half-split int4);
+  * :func:`unpack_dequant_mean` — K10b, replacing the kernel inside the
+    reference's ``unpack_dequant_mean``: the receive side of the quantized
+    reduce-scatter, n peers' wires dequantized and averaged in one pass;
+  * :func:`wire_residual` — K10a's variant for LoCo's error feedback,
+    replacing the reference's ``x - unpack_dequant_wire(w, s)``: what the
+    wire did not carry, ``fma(-q, s, x)`` an element.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it (``*_reference``), which the
@@ -17,9 +26,9 @@ CPU tests hold against the Pallas kernels in interpret mode, byte for
 byte, and ``chip_smoke.py`` holds against the kernel on the card, bit for
 bit. Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The bytes equal the JAX package's, so quantized weights and DSKV1 frames
-cross between the packages. The rules that takes, in the kernels and in
-the plain versions alike:
+The bytes equal the JAX package's, so quantized weights, DSKV1 frames and
+gradient wires cross between the packages. The rules that takes, in the
+kernels and in the plain versions alike:
 
   * the scale is ``max|x| * fl(1/q_max)``: XLA folds the reference's
     division by the constant into that multiply; a zero scale becomes 1;
@@ -27,8 +36,12 @@ the plain versions alike:
     ``±q_max``; a NaN quotient gives 0;
   * NaN propagates through the max: a group holding a NaN gets scale NaN
     and every q 0, one holding an infinity scale inf and every q 0;
-  * subnormal inputs and scales are flushed to zero, as the reference's
-    CPU arithmetic flushes them.
+  * subnormal inputs, scales and results are flushed to zero, as the
+    reference's CPU arithmetic flushes them;
+  * the mean over peers (K10b) is ``q_0·s_0``, then ``fma(q_r, s_r, acc)``
+    for r = 1..n-1 in peer order, times ``fl(1/n)``: XLA compiles the
+    reference's ``sum(axis=0) / n`` to exactly that (measured against
+    interpret mode at n = 2, 3, 4, 5).
 
 Inputs may have any float dtype and shape; they are flattened and the
 tail group zero-padded, giving q int8 ``[groups, group_size]`` and scales
@@ -39,15 +52,12 @@ The legacy interleaved int4 pair (:func:`quantize_int4`,
 :func:`dequantize_int4`) is plain jnp in the reference, run eagerly by
 ``quantize_params``; here it is plain PyTorch on the tensor's own device,
 and its scale is an IEEE division by 7, as the eager reference computes
-it. The int4 wire quantizer (K9b) and the dequantize-mean of the
-quantized reduce-scatter (K10b) serve only paths with more than one
-device: they raise ``NotImplementedError`` (ROADMAP M8). A plain K9b,
-:func:`_quant_pack4_reference`, makes int4 wire bytes for K10a's tests.
+it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,17 +70,21 @@ ARGTYPES = {
     # x, n, group_size, groups, q, scales, dtype, stream
     "quantize_int8_launch": [_P, _N, _I, _N, _P, _P, _I, _P],
     "quant_pack_wire8_launch": [_P, _N, _I, _N, _P, _P, _I, _P],
+    "quant_pack_wire4_launch": [_P, _N, _I, _N, _P, _P, _I, _P],
     # q, scales, group_size, n, out, out_dtype, stream
     "dequantize_int8_launch": [_P, _P, _I, _N, _P, _I, _P],
     # w, scales, bits, group_size, n, out, out_dtype, stream
     "unpack_dequant_wire_launch": [_P, _P, _I, _I, _N, _P, _I, _P],
+    # x, w, scales, bits, group_size, n, out, stream
+    "wire_residual_launch": [_P, _P, _P, _I, _I, _N, _P, _P],
+    # w, scales, bits, npeers, groups, group_size, inv_n, add, out, stream
+    "unpack_dequant_mean_launch": [_P, _P, _I, _I, _N, _I, ctypes.c_float,
+                                   _P, _P, _P],
 }
 #: element-type codes of ``enum DType`` in ``csrc/quantizer.cu``
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _FLT_MIN = torch.finfo(torch.float32).tiny
-_M8 = ("is reached only from the paths with more than one device "
-       "(quantized collectives); it is not ported yet: ROADMAP M8")
 
 
 def launcher(fn: str):
@@ -186,6 +200,37 @@ def _unpack_wire(w: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.cat([lo, hi], dim=1)
 
 
+_FMA_ROWS_ELEMS = 1 << 22          # elements a float64 step of _fma holds
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once (``fmaf``), for a product that is
+    exact in float64 (two float32 values, or an int8 one and a float32).
+    ``a``, ``b`` and ``c`` have one shape, of at least one dim; → float32
+    of that shape.
+
+    The sum is taken in float64 and rounded to odd there (TwoSum gives its
+    error; an inexact sum with an even last bit moves one ulp toward the
+    error), which makes the final rounding to float32 a correct one: 53
+    bits hold the 24 of float32 and two more. Rows along dim 0 go a few
+    million elements at a time, so the float64 temporaries stay small."""
+    out = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+    step = max(1, _FMA_ROWS_ELEMS // max(1, c[0].numel()))
+    for i in range(0, c.shape[0], step):
+        sl = slice(i, i + step)
+        p = a[sl].to(torch.float64) * b[sl].to(torch.float64)
+        c64 = c[sl].to(torch.float64)
+        s = p + c64
+        bb = s - p
+        err = (p - (s - bb)) + (c64 - bb)
+        fix = torch.isfinite(s) & (err != 0)
+        bits = s.view(torch.int64)
+        fix &= (bits & 1) == 0
+        up = torch.where((err > 0) == (s > 0), 1, -1).to(torch.int64)
+        out[sl] = torch.where(fix, bits + up, bits).view(torch.float64)
+    return out
+
+
 # --------------------------------------------------------------------- #
 # CUDA launch helpers
 # --------------------------------------------------------------------- #
@@ -233,7 +278,10 @@ def _out_count(shape, groups: int, group_size: int) -> int:
     return n
 
 
-def _launch_quantize(name: str, fn: str, x: torch.Tensor, group_size: int):
+def _launch_quantize(name: str, fn: str, x: torch.Tensor, group_size: int,
+                     width: int = 0):
+    """Launch a quantizer writing ``[groups, width or group_size]`` int8
+    and ``[groups, 1]`` float32 scales."""
     x = _cuda_input(name, x)
     if group_size < 1:
         raise ValueError(f"group_size must be >= 1, got {group_size}")
@@ -241,7 +289,8 @@ def _launch_quantize(name: str, fn: str, x: torch.Tensor, group_size: int):
     if n == 0:
         raise ValueError("cannot quantize an empty tensor")
     groups = -(-n // group_size)
-    q = torch.empty(groups, group_size, dtype=torch.int8, device=x.device)
+    q = torch.empty(groups, width or group_size, dtype=torch.int8,
+                    device=x.device)
     s = torch.empty(groups, 1, dtype=torch.float32, device=x.device)
     stream = get_accelerator().current_stream(x.device).cuda_stream
     err = launcher(fn)(x.data_ptr(), n, group_size, groups, q.data_ptr(),
@@ -354,9 +403,9 @@ def _quant_pack4_reference(x: torch.Tensor, group_size: int = 256
 def quant_pack_wire_reference(x: torch.Tensor, bits: int,
                               group_size: int = 256
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K9a (``bits=8``)."""
+    """Plain version of K9a (``bits=8``) and K9b (``bits=4``)."""
     if bits == 4:
-        raise NotImplementedError(f"quant_pack_wire(bits=4) (K9b) {_M8}")
+        return _quant_pack4_reference(x, group_size)
     if bits != 8:
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     return _quantize_groups(x, group_size, 127)
@@ -368,22 +417,31 @@ def quant_pack_wire(x: torch.Tensor, bits: int, group_size: int = 256
     [groups, 1]) in one kernel; flattens and zero-pads the tail group.
 
     ``bits=8`` replaces ``_quant_pack8_kernel`` (K9a): K8a's math, so the
-    int8 wire equals :func:`quantize_int8`'s bytes. ``bits=4`` (K9b)
-    raises ``NotImplementedError`` (ROADMAP M8). Bound on the H100: bytes,
-    as K8a."""
+    int8 wire equals :func:`quantize_int8`'s bytes. ``bits=4`` replaces
+    ``_quant_pack4_kernel`` (K9b): scale ``max|x| * fl(1/7)``, clip ±7,
+    byte j of a group holding q[j] in its low nibble and q[j + G/2] in
+    its high one. Bound on the H100: bytes, the input read once and the
+    wire and scales written once. ``.launches`` counts K9a,
+    ``.launches4`` K9b."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     if x.device.type == "cpu":
         return quant_pack_wire_reference(x, bits, group_size)
-    if bits == 4:
-        raise NotImplementedError(f"quant_pack_wire(bits=4) (K9b) {_M8}")
-    if bits != 8:
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
-    out = _launch_quantize("quant_pack_wire", "quant_pack_wire8_launch", x,
-                           group_size)
-    quant_pack_wire.launches += 1
+    if bits == 8:
+        out = _launch_quantize("quant_pack_wire", "quant_pack_wire8_launch",
+                               x, group_size)
+        quant_pack_wire.launches += 1
+        return out
+    if group_size % 2:
+        raise ValueError(f"int4 needs an even group_size, got {group_size}")
+    out = _launch_quantize("quant_pack_wire", "quant_pack_wire4_launch", x,
+                           group_size, width=group_size // 2)
+    quant_pack_wire.launches4 += 1
     return out
 
 
 quant_pack_wire.launches = 0
+quant_pack_wire.launches4 = 0
 
 
 def unpack_dequant_wire_reference(w: torch.Tensor, scales: torch.Tensor,
@@ -425,11 +483,136 @@ def unpack_dequant_wire(w: torch.Tensor, scales: torch.Tensor, bits: int,
 unpack_dequant_wire.launches = 0
 
 
+def wire_residual_reference(x: torch.Tensor, w: torch.Tensor,
+                            scales: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of :func:`wire_residual`: :func:`_fma`, then a
+    subnormal result flushed to the zero of its sign."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    q = _unpack_wire(w, bits)
+    s = _ftz(scales.to(torch.float32)).expand(q.shape)
+    r = _fma(-q, s, x.reshape(q.shape).to(torch.float32)).reshape(-1)
+    return torch.where(r.abs() < _FLT_MIN, r * 0, r)
+
+
+def wire_residual(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    """LoCo's residual, what the wire did not carry: ``x - q·s`` per
+    element rounded once, float32 flat. ``x`` is float32 of the wire's
+    ``groups * group_size`` values (the quantizer's padded input), ``(w,
+    scales)`` its wire as :func:`unpack_dequant_wire` reads it.
+
+    K10a's variant: the reference's ``x - unpack_dequant_wire(w, s)``
+    compiles (XLA on the CPU) to ``fma(-q, s, x)`` with a subnormal result
+    flushed to the zero of its sign, and the kernel computes exactly that. Bound on
+    the H100: bytes, x, the wire and the scales read once, the float32
+    residual written once."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    n = w.numel() * (8 // bits)                  # groups * group_size
+    if x.numel() != n:
+        raise ValueError(f"wire_residual: x must hold the wire's {n} values, "
+                         f"got {tuple(x.shape)}")
+    if w.device.type == "cpu":
+        return wire_residual_reference(x, w, scales, bits)
+    w, scales, stream = _check_wire("wire_residual", w, scales,
+                                    torch.float32)
+    group_size = w.shape[1] * (8 // bits)
+    if x.device != w.device or x.dtype != torch.float32:
+        raise ValueError(f"wire_residual: x must be float32 on {w.device}, "
+                         f"got {x.dtype} on {x.device}")
+    x = x.contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=w.device)
+    err = launcher("wire_residual_launch")(
+        x.data_ptr(), w.data_ptr(), scales.data_ptr(), bits, group_size, n,
+        out.data_ptr(), stream)
+    check_launch("wire_residual", err)
+    wire_residual.launches += 1
+    return out
+
+
+wire_residual.launches = 0
+
+
+def unpack_dequant_mean_reference(w: torch.Tensor, scales: torch.Tensor,
+                                  bits: int, n: int,
+                                  add: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain version of K10b: peer 0's values, then each next peer's
+    product fused into the running sum (:func:`_fma`), times fl(1/n), and
+    ``add`` fused into that last multiply when given."""
+    _check_mean_args(w, scales, bits, n, add)
+    acc = None
+    for r in range(n):
+        q = _unpack_wire(w[r], bits)
+        s = _ftz(scales[r].to(torch.float32)).expand(q.shape)
+        acc = q.to(torch.float32) * s if acc is None else _fma(q, s, acc)
+        acc = _ftz(acc)
+    inv_n = (torch.ones((), dtype=torch.float32, device=acc.device) / n
+             ).expand(acc.shape)
+    if add is None:
+        return _ftz(acc * inv_n).reshape(-1)
+    return _ftz(_fma(acc, inv_n, add.to(torch.float32).view(acc.shape))
+                ).reshape(-1)
+
+
+def _check_mean_args(w, scales, bits, n, add=None):
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if w.dim() != 3 or w.shape[0] != n or w.dtype != torch.int8:
+        raise ValueError(f"unpack_dequant_mean: wire must be int8 [{n}, "
+                         f"groups, W], got {w.dtype} {tuple(w.shape)}")
+    if tuple(scales.shape) != (n, w.shape[1], 1):
+        raise ValueError(f"unpack_dequant_mean: scales must be [{n}, "
+                         f"{w.shape[1]}, 1], got {tuple(scales.shape)}")
+    G = w.shape[2] if bits == 8 else 2 * w.shape[2]
+    if add is not None and add.numel() != w.shape[1] * G:
+        raise ValueError(f"unpack_dequant_mean: add must hold "
+                         f"{w.shape[1] * G} values, got {add.numel()}")
+
+
 def unpack_dequant_mean(w: torch.Tensor, scales: torch.Tensor, bits: int,
-                        n: int) -> torch.Tensor:
-    """The receive side of the quantized reduce-scatter (K10b): not ported
-    (ROADMAP M8)."""
-    raise NotImplementedError(f"unpack_dequant_mean (K10b) {_M8}")
+                        n: int, add: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Fused unpack + dequant + mean over the peer axis: (wire
+    ``[n, groups, W]``, scales ``[n, groups, 1]``) → float32
+    ``[groups * group_size]``.
+
+    The receive side of a quantized reduce-scatter: each of the ``n``
+    peers sent a quantized copy of this rank's partition; one pass
+    dequantizes and averages them without writing the n float32 copies.
+    ``add`` (float32, one value an output) is added in the same rounding
+    as the multiply by fl(1/n), as XLA fuses the reference's mean with
+    LoCo's following ``+ server_error``. Replaces the kernel inside
+    ``unpack_dequant_mean`` (K10b). Bound on the H100: bytes, the n wires
+    and scales (and ``add``) read once, the float32 mean written once."""
+    if w.device.type == "cpu":
+        return unpack_dequant_mean_reference(w, scales, bits, n, add)
+    _check_mean_args(w, scales, bits, n, add)
+    if scales.dtype != torch.float32 or scales.device != w.device:
+        raise ValueError("unpack_dequant_mean: scales must be float32 on "
+                         f"{w.device}")
+    w, scales = w.contiguous(), scales.contiguous()
+    groups, W = w.shape[1], w.shape[2]
+    group_size = W if bits == 8 else 2 * W
+    out = torch.empty(groups * group_size, dtype=torch.float32,
+                      device=w.device)
+    if add is not None:
+        if add.device != w.device or add.dtype != torch.float32:
+            raise ValueError("unpack_dequant_mean: add must be float32 on "
+                             f"{w.device}")
+        add = add.contiguous()
+    inv_n = float(torch.ones((), dtype=torch.float32) / n)
+    stream = get_accelerator().current_stream(w.device).cuda_stream
+    err = launcher("unpack_dequant_mean_launch")(
+        w.data_ptr(), scales.data_ptr(), bits, n, groups, group_size, inv_n,
+        None if add is None else add.data_ptr(), out.data_ptr(), stream)
+    check_launch("unpack_dequant_mean", err)
+    unpack_dequant_mean.launches += 1
+    return out
+
+
+unpack_dequant_mean.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -437,7 +620,8 @@ def unpack_dequant_mean(w: torch.Tensor, scales: torch.Tensor, bits: int,
 # --------------------------------------------------------------------- #
 def get_quant_fns(bits: int):
     """(quantize, dequantize) pair for a bit width — the one dispatch
-    table (weight-only serving and the Quantizer class)."""
+    table (the legacy quantized allreduce, weight-only serving and the
+    Quantizer class)."""
     if bits == 4:
         return quantize_int4, dequantize_int4
     if bits == 8:

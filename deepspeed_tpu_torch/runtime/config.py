@@ -1,16 +1,18 @@
 """Training config for the PyTorch port (counterpart of
 ``deepspeed_tpu/runtime/config.py``).
 
-``DeepSpeedConfig`` reads the keys the single-device train path uses,
-under the reference framework's JSON names: ``train_batch_size``,
+``DeepSpeedConfig`` reads the keys the train path uses, under the
+reference framework's JSON names: ``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``,
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``zero_optimization.stage``, ``fp16``, ``bf16`` and ``checkpoint``. The
-batch solve and
-its ``ValueError``s are the JAX package's, with a data-parallel size of 1
-(one process, one device). The ``checkpoint`` block takes the JAX fields
+``zero_optimization`` (``stage`` and ZeRO++'s
+``zero_quantized_gradients`` and ``zeropp_loco``), ``fp16``, ``bf16`` and
+``checkpoint``. The batch solve and its ``ValueError``s are the JAX
+package's, with the data-parallel size of the topology it is given (the
+world size; 1 without one). The ``checkpoint`` block takes the JAX fields
 and, like the JAX package, acts on none of them: the port's saves are
-synchronous whatever ``async_save`` says.
+synchronous whatever ``async_save`` says. ``zero_quantized_weights``
+(qwZ) is, as in the JAX package, ignored with a warning below stage 3.
 
 A block the JAX package honours but the port does not implement yet
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` item, instead of
@@ -24,6 +26,8 @@ import json
 from typing import Any, Dict, Optional, Union
 
 import torch
+
+from ..utils.logging import logger
 
 # top-level blocks the JAX package honours that the port does not
 # implement yet → the ROADMAP item that ports them
@@ -97,6 +101,15 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
+class ZeroConfig:
+    stage: int = 0
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    #: LoCo error feedback on the quantized gradient wire
+    zeropp_loco: bool = False
+
+
+@dataclasses.dataclass
 class OptimizerConfig:
     type: str = "Adam"
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -117,9 +130,12 @@ def _block(cls, raw: Optional[Dict[str, Any]]):
 
 
 class DeepSpeedConfig:
-    """The train path's config: ``config`` is a dict or a JSON file path."""
+    """The train path's config: ``config`` is a dict or a JSON file path;
+    ``topology`` (a ``runtime.topology.MeshTopology``) sets the
+    data-parallel size of the batch solve."""
 
-    def __init__(self, config: Union[str, Dict[str, Any], None] = None):
+    def __init__(self, config: Union[str, Dict[str, Any], None] = None,
+                 topology=None):
         if config is None:
             config = {}
         if isinstance(config, str):
@@ -127,6 +143,7 @@ class DeepSpeedConfig:
                 config = json.load(f)
         if not isinstance(config, dict):
             raise TypeError(f"config must be dict or path, got {type(config)}")
+        self.raw: Dict[str, Any] = config
 
         self.train_batch_size: Optional[int] = config.get("train_batch_size")
         self.train_micro_batch_size_per_gpu: Optional[int] = config.get(
@@ -145,11 +162,16 @@ class DeepSpeedConfig:
         self.checkpoint_config = _block(CheckpointConfig,
                                         config.get("checkpoint"))
         zero = dict(config.get("zero_optimization", {}) or {})
-        self.zero_stage: int = zero.get("stage", 0)
+        self.zero_config = _block(ZeroConfig, zero)
+        self.zero_stage: int = self.zero_config.stage
+        self._topology = topology
 
         self._resolve_batch()
         self._sanity_check()
         self._refuse_not_ported(config, zero)
+        if self.zero_config.zero_quantized_weights and self.zero_stage < 3:
+            logger.warning("zero_quantized_weights ignored below ZeRO "
+                           "stage 3")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -159,10 +181,15 @@ class DeepSpeedConfig:
             return torch.float16
         return torch.float32
 
+    def data_parallel_size(self) -> int:
+        if self._topology is not None:
+            return self._topology.get_data_parallel_world_size()
+        return 1
+
     def _resolve_batch(self) -> None:
-        """Solve train = micro * gas * dp (dp = 1) for whichever terms are
-        missing (the JAX ``_resolve_batch``)."""
-        dp = 1
+        """Solve train = micro * gas * dp for whichever terms are missing
+        (the JAX ``_resolve_batch``)."""
+        dp = self.data_parallel_size()
         train, micro, gas = (self.train_batch_size,
                              self.train_micro_batch_size_per_gpu,
                              self.gradient_accumulation_steps)
@@ -188,12 +215,13 @@ class DeepSpeedConfig:
         self.gradient_accumulation_steps = gas
 
     def _sanity_check(self) -> None:
+        dp = self.data_parallel_size()
         t, m, g = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
                    self.gradient_accumulation_steps)
-        if t != m * g:
+        if t != m * g * dp:
             raise ValueError(
                 f"batch config invalid: train_batch_size={t} != micro({m}) * "
-                f"gas({g}) * dp(1)")
+                f"gas({g}) * dp({dp})")
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         if self.zero_stage not in (0, 1, 2, 3):
@@ -215,6 +243,11 @@ class DeepSpeedConfig:
             raise NotImplementedError(
                 "zero_optimization.overlap_comm is not ported yet "
                 "(ROADMAP M6)")
+        if zero.get("zero_hpz_partition_size", 1) > 1 \
+                or zero.get("mics_shard_size", -1) > 0:
+            raise NotImplementedError(
+                "hpZ/MiCS shard groups (zero_hpz_partition_size, "
+                "mics_shard_size) are not ported yet (ROADMAP M6)")
         for key, item in _NOT_PORTED.items():
             if key in config and _enabled(config[key]):
                 raise NotImplementedError(

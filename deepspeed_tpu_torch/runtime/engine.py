@@ -1,5 +1,6 @@
 """DeepSpeedEngine for the PyTorch port (counterpart of
-``deepspeed_tpu/runtime/engine.py``): single-device training, ZeRO stage 0.
+``deepspeed_tpu/runtime/engine.py``): ZeRO stage 0 on one device, or on
+each rank of a data-parallel ``torch.distributed`` world.
 
 The engine holds float32 master parameters (``self.params``, a dict of
 dotted name → leaf tensor that requires grad) and an optimizer over them.
@@ -16,6 +17,19 @@ the masters and the optimizer state stay as they were, and the step is
 counted in ``skipped_steps``). ``forward``/``backward``/``step`` are the
 imperative path with the same update at the accumulation boundary;
 ``eval_batch`` is the loss under ``no_grad``.
+
+On a world of n > 1 processes (``runtime/topology.py``: the data extent
+is the world size) every rank holds the whole model, ``train_batch``
+takes the same global batch as the JAX engine and rank r trains on the
+rows the JAX mesh puts on data index r, rows ``[r·micro, (r+1)·micro)``
+of each micro-batch. The gradients are exchanged as the JAX engine
+exchanges them (``runtime/comm_path.py``): the plain mean, or with
+``zero_quantized_gradients`` the quantized wire, with LoCo residuals kept
+per rank under ``zeropp_loco``; every rank returns the data-mean loss and
+applies the same update, so the ranks' parameters stay equal. The
+imperative ``backward()``/``step()`` at n > 1 raise
+``NotImplementedError`` (ROADMAP M8). ``save_checkpoint`` writes from rank
+0 between two barriers; every rank loads.
 
 Updates are in place (the JAX engine donates its state instead). When the
 model's parameters are already float32 on the engine's device, the masters
@@ -39,6 +53,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from .. import comm
 from ..accelerator import get_accelerator
 from ..checkpoint.ds_to_universal import INDEX_FILE
 from ..checkpoint.universal.layout import universal_name
@@ -48,6 +63,7 @@ from .config import DeepSpeedConfig
 from .fp16.loss_scaler import LossScalerState, create_loss_scaler
 from .lr_schedules import get_schedule_fn
 from .optimizer import build_optimizer
+from .topology import DATA, get_topology
 
 
 def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -58,9 +74,16 @@ def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 class DeepSpeedEngine:
     def __init__(self, model: Any, config: DeepSpeedConfig,
                  model_parameters: Optional[Dict[str, torch.Tensor]] = None,
-                 lr_scheduler: Any = None, device=None):
+                 lr_scheduler: Any = None, device=None, topology=None):
         self.config = config
         self.device = get_accelerator().resolve_device(device)
+        self.topology = topology if topology is not None else get_topology()
+        self.dp_world_size = self.topology.dims[DATA]
+        if self.dp_world_size != comm.get_world_size():
+            raise ValueError(f"the topology's data extent "
+                             f"{self.dp_world_size} is not the world size "
+                             f"{comm.get_world_size()}")
+        self.dp_rank = self.topology.data_index
         self.module = model
         self.loss_fn = self._resolve_loss_fn(model)
         self.compute_dtype = config.dtype
@@ -85,7 +108,15 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.skipped_steps = 0
         self.micro_steps = 0
+        #: LoCo residuals of this rank (``comm_path``), None without LoCo
+        self.comm_error = None
+        self._dp_step = None
+        if self.dp_world_size > 1:
+            from .comm_path import build_explicit_comm_step
+
+            self._dp_step = build_explicit_comm_step(self)
         logger.info(f"engine ready: device={self.device} "
+                    f"dp={self.dp_world_size} rank={self.dp_rank} "
                     f"dtype={self.compute_dtype} "
                     f"batch={config.train_batch_size} "
                     f"micro={config.train_micro_batch_size_per_gpu} "
@@ -169,11 +200,14 @@ class DeepSpeedEngine:
             p.grad = None
 
     def _apply_update(self, grads: Dict[str, torch.Tensor],
-                      grad_norm_scale: Optional[float] = None) -> None:
+                      grad_norm_scale: Optional[float] = None,
+                      unscale: bool = True) -> bool:
         """Unscale, clip, zero non-finite values, update, and skip the
         update on overflow (dynamic scaler only), in the reference's
-        order; ``grads`` are modified in place."""
-        self.loss_scaler.unscale_grads(grads, self.scaler_state)
+        order; ``grads`` are modified in place. ``unscale=False`` when the
+        caller unscaled before the wire. → whether the step overflowed."""
+        if unscale:
+            self.loss_scaler.unscale_grads(grads, self.scaler_state)
         if grad_norm_scale is not None:
             for g in grads.values():
                 g.mul_(grad_norm_scale)
@@ -194,6 +228,7 @@ class DeepSpeedEngine:
             self.skipped_steps += 1
         else:
             self.global_steps += 1
+        return bool(overflow)
 
     # ------------------------------------------------------------------ #
     # Fused path
@@ -204,6 +239,10 @@ class DeepSpeedEngine:
         ``gas`` micro-batches. → the mean micro-batch loss (float32)."""
         gas = self.gradient_accumulation_steps()
         batch = self._to_device(batch)
+        if self._dp_step is not None:
+            loss = self._dp_step(self._rank_rows(batch))
+            self.micro_steps += gas
+            return loss
         self._zero_grads()
         if gas == 1:
             mean_loss = self._loss_and_backward(batch)
@@ -225,15 +264,51 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         return mean_loss
 
+    def _rank_rows(self, batch):
+        """This rank's micro-batches of a global batch: ``[gas]`` of rows
+        ``[r·micro, (r+1)·micro)`` of each global micro-batch, as the JAX
+        mesh shards them over the data axis."""
+        gas = self.gradient_accumulation_steps()
+        micro = self.config.train_micro_batch_size_per_gpu
+        lo = self.dp_rank * micro
+
+        def rows(x, i):
+            x = x.reshape(gas, -1, *x.shape[1:])[i]
+            if x.shape[0] != micro * self.dp_world_size:
+                raise ValueError(f"a global micro-batch has {x.shape[0]} "
+                                 f"rows, not micro {micro} x dp "
+                                 f"{self.dp_world_size}")
+            return x[lo:lo + micro]
+
+        if isinstance(batch, dict):
+            return [{k: rows(v, i) for k, v in batch.items()}
+                    for i in range(gas)]
+        return [rows(batch, i) for i in range(gas)]
+
     # ------------------------------------------------------------------ #
     # Imperative path (reference API shape)
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
-        """Loss-only forward (eval); for training use backward()/step()."""
-        out = self.loss_fn(self._compute_params(), self._to_device(batch),
-                           None)
-        return out[0] if isinstance(out, tuple) else out
+        """Loss-only forward (eval); for training use backward()/step().
+        On a world of n > 1 each rank takes its rows of the global batch
+        and every rank returns the data-mean loss."""
+        batch = self._to_device(batch)
+        if self._dp_step is not None:
+            micro = batch.shape[0] if not isinstance(batch, dict) else \
+                next(iter(batch.values())).shape[0]
+            if micro % self.dp_world_size:
+                raise ValueError(f"a batch of {micro} rows does not split "
+                                 f"over {self.dp_world_size} ranks")
+            per = micro // self.dp_world_size
+            lo = self.dp_rank * per
+            batch = {k: v[lo:lo + per] for k, v in batch.items()} \
+                if isinstance(batch, dict) else batch[lo:lo + per]
+        out = self.loss_fn(self._compute_params(), batch, None)
+        out = out[0] if isinstance(out, tuple) else out
+        if self._dp_step is not None:
+            out = self._dp_step.ctx.mean_loss(out.float())
+        return out
 
     __call__ = forward
 
@@ -242,13 +317,23 @@ class DeepSpeedEngine:
         add to those of the accumulation window. Like the JAX engine (and
         unlike the reference), it takes the micro-batch, not a loss.
         → the micro-batch loss."""
+        self._refuse_imperative_dp("backward")
         loss = self._loss_and_backward(self._to_device(batch))
         self.micro_steps += 1
         return loss
 
+    def _refuse_imperative_dp(self, name: str) -> None:
+        if self._dp_step is not None:
+            raise NotImplementedError(
+                f"{name}() on a data-parallel world of "
+                f"{self.dp_world_size}: the imperative path's exchange at "
+                f"the accumulation boundary is not ported yet (ROADMAP M8); "
+                f"use train_batch")
+
     def step(self) -> None:
         """Apply the update at the accumulation boundary (else a no-op),
         the accumulated sum scaled by 1/gas after unscaling."""
+        self._refuse_imperative_dp("step")
         if not self.is_gradient_accumulation_boundary():
             return
         grads = self._grads()
@@ -288,14 +373,19 @@ class DeepSpeedEngine:
             "lr_scheduler": scheduler,
             "client_state": client_state or {},
             "config": {"zero_stage": self.config.zero_stage,
-                       "world_size": 1},
+                       "world_size": self.dp_world_size},
         }
-        store = NumpyCheckpointEngine(save_dir)
-        store.save({"leaves": leaves, "meta": meta,
-                    "step": self.global_steps}, tag)
-        if save_latest:
-            store.commit(tag)
-        logger.info(f"saved checkpoint {save_dir}/{tag}")
+        # the ranks' masters are equal: rank 0 writes, the others wait, so
+        # no two processes ever write one tag
+        comm.barrier()
+        if self.dp_rank == 0:
+            store = NumpyCheckpointEngine(save_dir)
+            store.save({"leaves": leaves, "meta": meta,
+                        "step": self.global_steps}, tag)
+            if save_latest:
+                store.commit(tag)
+            logger.info(f"saved checkpoint {save_dir}/{tag}")
+        comm.barrier()
         return True
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,

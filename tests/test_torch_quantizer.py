@@ -237,16 +237,25 @@ def test_dispatch_quantizer_and_wire_width():
 
 
 def test_int4_wire_and_mean_raise_not_implemented():
-    """K9b and K10b serve only paths with more than one device: the public
-    entry points refuse, naming the ROADMAP item."""
-    x = torch.ones(512)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        tq.quant_pack_wire(x, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        tq.quant_pack_wire_reference(x, 4)
-    w = torch.zeros(2, 4, 128, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        tq.unpack_dequant_mean(w, torch.ones(2, 4, 1), 4, 2)
+    """K9b and K10b raised ``NotImplementedError`` (ROADMAP M8) until the
+    quantized gradient wire was ported. Now neither raises it: on CPU
+    tensors both run their plain versions and count no launch, and an
+    argument they cannot take raises ``ValueError``."""
+    x = torch.linspace(-1, 1, 512)
+    before = (tq.quant_pack_wire.launches4, tq.unpack_dequant_mean.launches)
+    w, s = tq.quant_pack_wire(x, 4)
+    pw, ps = tq._quant_pack4_reference(x)
+    assert w.shape == (2, 128) and torch.equal(w, pw) and torch.equal(s, ps)
+    assert torch.equal(tq.quant_pack_wire_reference(x, 4)[0], w)
+    mean = tq.unpack_dequant_mean(torch.stack([w, w]), torch.stack([s, s]),
+                                  4, 2)
+    assert_same(mean, tq.unpack_dequant_wire(w, s, 4), "K10b of equal peers")
+    assert (tq.quant_pack_wire.launches4,
+            tq.unpack_dequant_mean.launches) == before
+    with pytest.raises(ValueError, match="even"):
+        tq.quant_pack_wire(x, 4, 3)
+    with pytest.raises(ValueError, match="wire"):
+        tq.unpack_dequant_mean(torch.stack([w, w]), torch.stack([s, s]), 4, 3)
 
 
 def test_bad_arguments_raise():
