@@ -8,11 +8,18 @@ non-zero before the last line is printed:
 
   1. the card: ``nvidia-smi`` name and power limit, ``nvcc``;
   2. build the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one ``nvcc``
-     per source, in parallel) and print the build time and ptxas report;
+     per source, in parallel) and print the build time and ptxas report,
+     with the registers, spills and static shared memory of the kernels
+     redesigned for Hopper (``REDESIGNED``);
   3. hold each kernel against its plain PyTorch version on the card: at the
      serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16) and on
      float32 edge batches (padding rows, zero-length rows, contexts ending
-     on a page edge, a NaN-poisoned sequence);
+     on a page edge, a NaN-poisoned sequence); then K7's split-context
+     design: the same q and K/V rows paged at 64 and at 128 must give
+     bit-equal outputs, two calls bit-equal ones, on the split-edge
+     lengths (0, 1, 63, 64, 65, 127, 128, 129, 1000, 2048) in bf16 and
+     f32 against the plain version; NSPLIT and the live first-pass blocks
+     are logged;
   4. the main path: ``InferenceEngineV2.generate`` at the full width and
      depth of ``TransformerConfig.llama3_8b()`` (random bf16 weights from a
      seeded generator), 8 prompts of 128-1024 tokens, 64 new tokens each:
@@ -31,7 +38,9 @@ non-zero before the last line is printed:
      100, 257; causal and full; hd 64 and 128; G 1 and 4) and the same
      tails in bf16; the fused RMSNorm+matmul at M 8192, D 4096, F
      4096/1024/14336 in bf16 and at M 100, F 1000 in float32 and bf16;
-     each elementwise against a stated limit;
+     each elementwise against a stated limit; K4 twice bit for bit, and a
+     planted fault (one 64-deep k-stage skipped) that must read at least
+     10x its limit;
   7. the training path: ``initialize`` → ``DeepSpeedEngine.train_batch`` on
      ``TransformerConfig.llama3_8b()`` widths cut to 4 layers with remat
      (random float32 masters from a seeded generator, bench.py's ds_config:
@@ -434,6 +443,48 @@ def phase_card(torch):
     log(f"nvcc: {find_nvcc()}")
 
 
+def ptxas_report(log_text, names):
+    """{kernel: {"registers", "spill_bytes", "stack_bytes", "smem_bytes"}}
+    from ``nvcc -Xptxas -v`` output, for each entry function whose mangled
+    name contains one of ``names`` (instantiations merged: the largest of
+    each number)."""
+    import re
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            if cur:
+                out.setdefault(cur, {"registers": 0, "spill_bytes": 0,
+                                     "stack_bytes": 0, "smem_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        rec = out[cur]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec["stack_bytes"] = max(rec["stack_bytes"], int(m.group(1)))
+            rec["spill_bytes"] = max(rec["spill_bytes"], int(m.group(2)),
+                                     int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = max(rec["registers"], int(m.group(1)))
+            sm = re.search(r"(\d+) bytes smem", line)
+            if sm:
+                rec["smem_bytes"] = max(rec["smem_bytes"], int(sm.group(1)))
+    return out
+
+
+# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4), by
+# source; their dynamic shared memory comes on top of ptxas's static figure
+REDESIGNED = {
+    "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
+    "rmsnorm_matmul": ("rms_rows_kernel", "rmsnorm_matmul_wgmma_kernel"),
+}
+
+
 def phase_build(torch):
     from deepspeed_tpu_torch.ops.op_builder import get_builder, load_kernels
 
@@ -444,9 +495,18 @@ def phase_build(torch):
         f"(nvcc {builder.build_seconds:.1f} s)")
     for name, text in builder.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "wgmma" in line or "setmaxnreg" in line):
                 log(f"  ptxas[{name}]: {line.strip()}")
+    report = {}
+    for src, names in REDESIGNED.items():
+        report.update(ptxas_report(builder.build_log.get(src, ""), names))
+    for name, rec in report.items():
+        log(f"ptxas {name}: {rec['registers']} registers, "
+            f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
+            f"bytes stack, {rec['smem_bytes']} bytes static smem")
     torch.cuda.synchronize()
+    return report
 
 
 def _compare(torch, name, k, p, atol, rtol=0.0):
@@ -537,6 +597,72 @@ def phase_kernel_checks(torch, ops, shapes):
               f"decode {tag}: poisoned sequence lost its NaN")
     torch.cuda.synchronize()
     return errs
+
+
+def log_decode_split(ops, what, kv_lens, KV, NB, ps, split):
+    """Log K7's first-pass geometry on a batch: NSPLIT, the kernel's own
+    split count for this page table, and the splits that start inside
+    their sequence's context, worked out from the lengths (input
+    geometry, not a count the kernel reported)."""
+    nsplit = ops.decode_split_count(NB, ps)
+    live = KV * sum(-(-min(n, NB * ps) // split) for n in kv_lens)
+    log(f"{what}: NSPLIT {nsplit} (kernel's split count), {live} of "
+        f"{len(kv_lens) * KV * nsplit} first-pass blocks start inside their "
+        f"context (from the lengths)")
+
+
+def phase_decode_split_checks(torch, ops, shapes):
+    """K7's split-context design on the card: the same q and K/V rows
+    paged at 64 and at 128 give bit-equal outputs (split boundaries and
+    sums depend on positions alone), two calls are bit-equal, and the
+    split-edge lengths agree with the plain version in bf16 and f32."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    C = 2048
+    split = C // ops.decode_split_count(C, 1)   # positions a split
+    lens = [0, 1, split - 1, split, split + 1, 2 * split - 1, 2 * split,
+            2 * split + 1, 1000, C]
+    for dtype, tag, atol, rtol in ((torch.bfloat16, "bf16", BF16_ATOL,
+                                    BF16_RTOL),
+                                   (torch.float32, "f32", F32_ATOL, 0.0)):
+        for KV, G, hd in ((8, 4, 128), (2, 8, 64)):
+            S = len(lens)
+            rows = torch.randn(S, C, 2 * KV, hd, generator=gen,
+                               device=DEVICE).to(dtype)
+            q = torch.randn(S, KV * G, hd, generator=gen,
+                            device=DEVICE).to(dtype)
+            kvl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            outs = {}
+            for ps in (64, 128):
+                NB = C // ps
+                pages = torch.randn(S * NB + 1, ps, 2 * KV, hd, generator=gen,
+                                    device=DEVICE).to(dtype)
+                pt = torch.randperm(S * NB, generator=gen, device=DEVICE)
+                pt = pt.view(S, NB).to(torch.int32).contiguous()
+                pages[pt.long()] = rows.view(S, NB, ps, 2 * KV, hd)
+                kw = dict(num_kv_heads=KV)
+                outs[ps] = ops.decode_paged_attention(q, pages, kvl, pt, **kw)
+                if ps == 64:
+                    again = ops.decode_paged_attention(q, pages, kvl, pt,
+                                                       **kw)
+                    check(torch.equal(again, outs[ps]),
+                          f"decode {tag} KV={KV} G={G} hd={hd}: two calls "
+                          f"differ")
+                    _compare(torch, f"decode_paged_attention split edges "
+                             f"{tag} KV={KV} G={G} hd={hd}", outs[ps],
+                             ops.decode_attend_dense(q, pages, kvl, pt, **kw),
+                             atol, rtol)
+                log_decode_split(ops, f"  page {ps}", lens, KV, NB, ps,
+                                 split)
+                del pages
+            check(torch.equal(outs[64], outs[128]),
+                  f"decode {tag} KV={KV} G={G} hd={hd}: page 64 and page "
+                  f"128 outputs differ")
+            log(f"check decode {tag} KV={KV} G={G} hd={hd}: page 64 == page "
+                f"128 bit for bit, two calls bit for bit")
+    m = shapes
+    log_decode_split(ops, "decode main shapes", m["k7_kv_lens"], m["KV"],
+                     m["NB"], m["ps"], split)
+    torch.cuda.synchronize()
 
 
 def _run_generate(torch, ops, engine, prompts, new_tokens, vocab):
@@ -831,11 +957,9 @@ def check_flash(torch, fa, tag, q, k, v, do, causal, terms, rtol, atol):
     return errs
 
 
-def check_rmsnorm_matmul(torch, fcm, tag, x, scale, w, eps):
-    """K4 against its plain version, with a per-row limit (see
-    K4_EDGE_TERMS). → max abs error."""
-    ref = fcm.rmsnorm_matmul_reference(x, scale, w, eps)
-    out = fcm.rmsnorm_matmul_fwd(x, scale, w, eps)
+def rmsnorm_matmul_limit(torch, tag, x, scale, w, eps, ref):
+    """The per-row elementwise limit K4 is held to (see K4_EDGE_TERMS)
+    → (limit tensor, its description)."""
     D = x.shape[1]
     r = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps)
     h = (x * r.to(x.dtype)) * scale
@@ -857,8 +981,44 @@ def check_rmsnorm_matmul(torch, fcm, tag, x, scale, w, eps):
         coef = sum_rel + 2.0 ** -20
         limit = 1e-5 + F32_RTOL * ref.abs() + coef * terms
         why = f"1e-5 + {F32_RTOL:.0e}*|ref| + {coef:.3g}*|h|@|w|, float32"
+    return limit, why
+
+
+def check_rmsnorm_matmul(torch, fcm, tag, x, scale, w, eps):
+    """K4 against its plain version, with a per-row limit (see
+    K4_EDGE_TERMS). → max abs error."""
+    ref = fcm.rmsnorm_matmul_reference(x, scale, w, eps)
+    out = fcm.rmsnorm_matmul_fwd(x, scale, w, eps)
+    limit, why = rmsnorm_matmul_limit(torch, tag, x, scale, w, eps, ref)
     return _compare_limit(torch, f"rmsnorm_matmul {tag}", out, ref, limit,
                           why)
+
+
+K4_STAGE = 64                      # the wgmma kernel's k-stage depth (BK)
+
+
+def check_rmsnorm_matmul_faults(torch, fcm, x, scale, w, eps):
+    """K4 twice on the same inputs, bit for bit; and a planted fault, the
+    product with one k-stage skipped (h's columns [2048, 2048 + 64)
+    dropped, as a kernel that lost a stage or waited on the wrong mbarrier
+    phase would compute), which must read at least 10x above the limit.
+    → the fault's reading (x the limit)."""
+    a = fcm.rmsnorm_matmul_fwd(x, scale, w, eps)
+    b = fcm.rmsnorm_matmul_fwd(x, scale, w, eps)
+    check(torch.equal(a, b), "rmsnorm_matmul: two calls differ")
+    log("check rmsnorm_matmul: two calls bit for bit")
+    ref = fcm.rmsnorm_matmul_reference(x, scale, w, eps)
+    limit, _ = rmsnorm_matmul_limit(torch, "planted fault", x, scale, w, eps,
+                                    ref)
+    h = fcm._normalize(x, scale, eps)
+    k0 = x.shape[1] // 2
+    h[:, k0:k0 + K4_STAGE] = 0
+    fault = fcm.matmul_reference(h, w)
+    worst = planted_fault(torch, f"K4 with the k-stage [{k0}, "
+                          f"{k0 + K4_STAGE}) skipped", fault, ref, limit)
+    check(worst >= 10.0, f"K4's limit reads a skipped k-stage at only "
+                         f"{worst:.2f}x, not >= 10x")
+    return worst
 
 
 def phase_train_kernel_checks(torch):
@@ -924,7 +1084,12 @@ def phase_train_kernel_checks(torch):
         err = check_rmsnorm_matmul(torch, fcm, f"bf16 M={M} D={D} F={F}", x,
                                    scale, w, 1e-5)
         errs["rmsnorm_matmul"] = max(errs.get("rmsnorm_matmul", 0.0), err)
-    del x, w
+        if F == K4_MAIN["Fs"][0]:
+            errs["rmsnorm_matmul_fault_x"] = check_rmsnorm_matmul_faults(
+                torch, fcm, x, scale, w, 1e-5)
+        del w
+        torch.cuda.empty_cache()
+    del x
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = torch.randn(100, D, generator=gen, device=DEVICE).to(dtype)
         scale = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)
@@ -1107,7 +1272,8 @@ def phase_train_main_path(torch, opt_type="AdamW", path_check=True):
 
 
 _KERNEL_GROUPS = (            # kernel-name substrings → what they are
-    ("K4 rmsnorm_matmul", ("rmsnorm_matmul_kernel",)),
+    ("K4 rmsnorm_matmul", ("rmsnorm_matmul_kernel",
+                           "rmsnorm_matmul_wgmma_kernel", "rms_rows_kernel")),
     ("K5/K13-K15 fused optimizers", ("adam_kernel", "lamb_kernel",
                                      "lion_kernel", "adagrad_kernel")),
     ("K1 flash forward", ("flash_fwd_kernel",)),
@@ -1310,6 +1476,7 @@ def phase_train_timing(torch, launches, errs):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library": "F.rms_norm + torch.matmul",
+        "planted_fault_x_limit": errs.get("rmsnorm_matmul_fault_x"),
         "shape": {"M": M, "D": D, "F": main["F"], "dtype": "bf16"},
         "by_shape": by_shape, "bytes": main["bytes"],
         "flops": main["flops"]})
@@ -2543,9 +2710,10 @@ def phase_handoff(torch, model, prompts, new_tokens):
                          for i in range(len(uids))]
         check(all(0 <= t < cfg.vocab_size for o in streams[wire] for t in o),
               f"{wire}: a token out of range")
-    # the fp32 wire carries P's bf16 rows exactly, and K6/K7 walk the
-    # context in chunks of 64 positions whatever the page: D's logits and
-    # greedy stream are P's own, bit for bit
+    # the fp32 wire carries P's bf16 rows exactly, K6 walks the context in
+    # chunks of 64 positions whatever the page and K7 splits it at fixed
+    # 64-position boundaries: D's logits and greedy stream are P's own,
+    # bit for bit
     check(same_bits(torch, logits["fp32"], logits["uninterrupted"])
           and streams["fp32"] == streams["uninterrupted"],
           "fp32-shipped continuation differs from P's uninterrupted run")
@@ -3425,9 +3593,10 @@ def main():
     t_start = time.perf_counter()
     try:
         phase_card(torch)
-        phase_build(torch)
+        ptxas = phase_build(torch)
         shapes = main_shapes()
         errs = phase_kernel_checks(torch, ops, shapes)
+        phase_decode_split_checks(torch, ops, shapes)
         train_errs = phase_train_kernel_checks(torch)
         opt_errs = phase_optimizer_kernel_checks(torch)
         phase_sparse_kernel_checks(torch)
@@ -3448,6 +3617,10 @@ def main():
         others = phase_other_fused(torch, fused_adam["losses"][0])
         checkpoint = phase_checkpoint(torch)
         kernels += phase_train_timing(torch, train_launches, train_errs)
+        for row in kernels:
+            names = REDESIGNED.get(row["name"], ())
+            if names:
+                row["ptxas"] = {n: ptxas[n] for n in names if n in ptxas}
         opt_launches = {"fused_adam": fa_launches["fused_adam"],
                         **{n: o["launches"] for n, o in others.items()}}
         kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)

@@ -24,6 +24,7 @@ package, here an in-place ``index_put_``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -36,11 +37,10 @@ from ....ops.op_builder.builder import (DTYPE_CODES, check_launch,
 _NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_G = 8
-
 _ARGTYPES = {
     "ragged_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "decode_paged_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "decode_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -49,6 +49,16 @@ def _launcher(name: str):
     """The ``<name>_launch`` C function of ``csrc/<name>.cu``, built on
     first use."""
     return kernel_function(name, f"{name}_launch", _ARGTYPES[name])
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_count(num_blocks: int, page_size: int) -> int:
+    """K7's first-pass split count for a page table ``num_blocks`` pages
+    wide of ``page_size``-row pages, as ``csrc/decode_paged_attention.cu``
+    defines it (its workspace holds that many partial states a row)."""
+    return kernel_function("decode_paged_attention",
+                           "decode_paged_attention_nsplit",
+                           [ctypes.c_int, ctypes.c_int])(num_blocks, page_size)
 
 
 def _check_shapes(q, kv_pages, kv_lens, page_table, num_kv_heads,
@@ -201,12 +211,19 @@ def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     ``< kv_lens[s]``; rows with ``kv_lens == 0`` are padding and give 0.
 
     Replaces ``deepspeed_tpu/inference/v2/kernels/ragged_ops.py``
-    ``_decode_paged_kernel``. On CUDA: ``csrc/decode_paged_attention.cu``,
-    one block per (sequence, KV head). Bound on the H100: bytes,
-    ``Σ_s kv_lens[s]·2·KV·hd·sizeof(elem)`` at 3.35 TB/s. The simple design
-    leaves the card under-filled at small batch (S·KV blocks) and walks
-    each context serially; splitting the context (flash-decoding) is later
-    work.
+    ``_decode_paged_kernel``. Bound on the H100: bytes,
+    ``Σ_s kv_lens[s]·2·KV·hd·sizeof(elem)`` at 3.35 TB/s. On CUDA:
+    ``csrc/decode_paged_attention.cu``, split-context (flash-decoding) in
+    two launches counted as one call: pass 1 runs one block per (sequence,
+    KV head, split of 64 context positions), each with all its K/V row
+    copies in flight before it computes, and writes float32 partial softmax
+    states to a workspace this wrapper allocates; pass 2 merges a
+    sequence's live splits in split order. The split count
+    (:func:`decode_split_count`) comes from the page table's width, so the
+    wrapper never reads ``kv_lens`` on the host, and the first pass's grid
+    and workspace grow with that width (the engine's ``max_ctx``), not with
+    the live context; every sum's order depends on context positions alone,
+    so the output is bit-identical at every page size.
     """
     H, KV, G, hd, ps, S, NB = _check_shapes(q, kv_pages, kv_lens, page_table,
                                             num_kv_heads)
@@ -220,10 +237,12 @@ def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     _check_kernel_inputs("decode_paged_attention", q, kv_pages,
                          (kv_lens, page_table), G, hd)
     out = torch.empty_like(q)
+    ws = torch.empty(S, H, decode_split_count(NB, ps), hd + 2,
+                     dtype=torch.float32, device=q.device)
     err = _launcher("decode_paged_attention")(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_table.data_ptr(), out.data_ptr(), S, H, KV, hd, ps, NB,
-        float(scale), DTYPE_CODES[q.dtype],
+        page_table.data_ptr(), out.data_ptr(), ws.data_ptr(), S, H, KV, hd,
+        ps, NB, float(scale), DTYPE_CODES[q.dtype],
         get_accelerator().current_stream(q.device).cuda_stream)
     check_launch("decode_paged_attention", err)
     decode_paged_attention.launches += 1

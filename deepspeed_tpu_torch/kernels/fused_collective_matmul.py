@@ -48,7 +48,7 @@ from ..ops.op_builder.builder import DTYPE_CODES, check_launch, kernel_function
 from ..ops.quantizer.quantizer import _ftz, _unpack_wire, quant_pack_wire
 from ..runtime.comm.fused_wire import _exchange_mean, group_count, inv_n
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = "collective_matmul"
@@ -283,12 +283,19 @@ def all_gather_matmul(x: torch.Tensor, w_shard: torch.Tensor, axes,
     return shard_major_matmul(x, w_full, 1)
 
 
+def rms_normaliser(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of K4's bfloat16 pre-pass (``rms_rows_kernel``): each
+    row's ``rsqrt(mean(x²) + eps)`` in float32, cast to x's dtype, as
+    ``models/transformer.py rms_norm`` computes it. → ``[..., 1]``."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return torch.rsqrt(var + eps).to(x.dtype)
+
+
 def _normalize(x: torch.Tensor, scale: torch.Tensor,
                eps: float) -> torch.Tensor:
     """``models/transformer.py rms_norm``: the variance in float32, the
     normaliser cast to x's dtype before the products."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+    return (x * rms_normaliser(x, eps)) * scale
 
 
 def rmsnorm_matmul_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -307,7 +314,14 @@ def rmsnorm_matmul_fwd(x2: torch.Tensor, scale: torch.Tensor,
     → ``[M, F]``; the plain composition for CPU tensors.
 
     Replaces ``_rmsnorm_matmul_kernel``. Bound on the H100: operations,
-    2·M·D·F flops at 989 TFLOP/s in bf16."""
+    2·M·D·F flops at 989 TFLOP/s in bf16. On CUDA, bf16 runs in two
+    launches counted as one call: a pre-pass writes each row's normaliser
+    once (:func:`rms_normaliser`'s float32 sum and rounding) to a workspace
+    this wrapper allocates, then a kernel fed by TMA through a 4-stage
+    shared-memory ring runs wgmma on 128 x 256 output tiles, normalising
+    each raw x fragment in registers on its way to the tensor cores.
+    float32 keeps an exact CUDA-core kernel (wgmma has no full-float32
+    mode)."""
     if x2.device.type == "cpu":
         return rmsnorm_matmul_reference(x2, scale, w, eps)
     M, D = x2.shape
@@ -333,9 +347,10 @@ def rmsnorm_matmul_fwd(x2: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
                              f"aligned")
     y = torch.empty(M, F, dtype=x2.dtype, device=x2.device)
+    rows = torch.empty(M, dtype=torch.float32, device=x2.device)
     err = kernel_function(name, "rmsnorm_matmul_launch", _ARGS)(
-        x2.data_ptr(), scale.data_ptr(), w.data_ptr(), y.data_ptr(), M, D, F,
-        float(eps), DTYPE_CODES[x2.dtype],
+        x2.data_ptr(), scale.data_ptr(), w.data_ptr(), y.data_ptr(),
+        rows.data_ptr(), M, D, F, float(eps), DTYPE_CODES[x2.dtype],
         get_accelerator().current_stream(x2.device).cuda_stream)
     check_launch(name, err)
     rmsnorm_matmul_fwd.launches += 1

@@ -157,6 +157,135 @@ class TestDecodePagedAttention:
         assert np.isnan(out[1]).all()
 
 
+#: context positions a split of the CUDA K7's first pass covers (``kSplit``
+#: in ``csrc/decode_paged_attention.cu``), for the emulation below
+K7_SPLIT = 64
+
+
+def _split_merge_emulation(q, pages, kvl, pt, KV, split=K7_SPLIT):
+    """A plain float32 emulation of the CUDA K7's two passes, for these
+    tests only: the context cut into fixed splits of ``split``
+    positions, each split's K/V rows gathered position by position through
+    the page table, its scores, max, sum and unnormalised P.V; then a
+    sequence's splits merged in split order (m* = max m_i, weights
+    exp(m_i - m*), one division at the end). Empty splits are never formed;
+    kv_lens == 0 rows give 0."""
+    q, pages = torch.as_tensor(q), torch.as_tensor(pages)
+    pt = torch.as_tensor(pt).long()
+    S, H, hd = q.shape
+    ps = pages.shape[1]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    out = torch.zeros(S, H, hd)
+    for s in range(S):
+        L = min(int(kvl[s]), pt.shape[1] * ps)
+        states = []
+        for base in range(0, L, split):
+            pos = torch.arange(base, min(base + split, L))
+            rows = pages[pt[s, pos // ps], pos % ps]          # [n, 2KV, hd]
+            k = rows[:, :KV].repeat_interleave(G, dim=1)
+            v = rows[:, KV:].repeat_interleave(G, dim=1)
+            scores = torch.einsum("hd,nhd->hn", q[s], k) * scale
+            m = scores.max(dim=-1).values
+            p = torch.exp(scores - m[:, None])
+            states.append((m, p.sum(-1), torch.einsum("hn,nhd->hd", p, v)))
+        if not states:
+            continue
+        m_star = torch.stack([m for m, _, _ in states]).max(dim=0).values
+        l, acc = torch.zeros(H), torch.zeros(H, hd)
+        for m, l_i, acc_i in states:
+            a = torch.exp(m - m_star)
+            l = l + a * l_i
+            acc = acc + a[:, None] * acc_i
+        out[s] = acc / l[:, None]
+    return out.numpy()
+
+
+def _paged_from_rows(rng, rows, ps):
+    """The logical context rows ``[S, C, 2KV, hd]`` (C a multiple of ps)
+    scattered into a pool of ``ps``-row pages under a random page table."""
+    S, C = rows.shape[:2]
+    NB = C // ps
+    perm = rng.permutation(S * NB)
+    pt = perm.reshape(S, NB).astype(np.int32)
+    pages = rng.normal(size=(S * NB + 1,) + (ps,) + rows.shape[2:]).astype(
+        np.float32)
+    for s in range(S):
+        pages[pt[s]] = rows[s].reshape(NB, ps, *rows.shape[2:])
+    return pages, pt
+
+
+SPLIT_EDGE_LENS = (0, 1, K7_SPLIT - 1, K7_SPLIT, K7_SPLIT + 1)
+
+
+class TestSplitContextDecode:
+    """The CUDA K7 splits the context into fixed runs of K7_SPLIT
+    positions and merges the splits' softmax states (flash-decoding). Its
+    arithmetic, emulated in float32, against the dense plain version and
+    the Pallas kernel (interpret mode) within 2e-5: the two sides sum the
+    same float32 terms over <= 256 keys in another order."""
+
+    @pytest.mark.parametrize("hd", [64, 128])
+    @pytest.mark.parametrize("G", [1, 4, 8])
+    @pytest.mark.parametrize("ps", [16, 64, 128])
+    def test_split_edges_match_dense_and_pallas(self, ps, G, hd):
+        """kv_lens 0, 1, split - 1, split, split + 1 and the table's whole
+        width NB * ps, which ends on a split and a page edge."""
+        rng = np.random.default_rng(50 + ps + G + hd)
+        KV, C = 2, 256
+        ctx = list(SPLIT_EDGE_LENS) + [C]
+        q, pages, kvl, pt = _decode_case(rng, ctx, KV, G, hd, ps, C // ps)
+        emu = _split_merge_emulation(q, pages, kvl, pt, KV)
+        dense = _port_decode(q, pages, kvl, pt, KV)
+        pallas = np.asarray(jax_ops.decode_paged_attention(
+            jnp.asarray(q), jnp.asarray(pages), jnp.asarray(kvl),
+            jnp.asarray(pt), num_kv_heads=KV, interpret=True))
+        np.testing.assert_allclose(emu, dense, **TOL)
+        np.testing.assert_allclose(emu, pallas, **TOL)
+        np.testing.assert_array_equal(emu[0], 0.0)
+
+    @pytest.mark.parametrize("G,hd", [(4, 128), (8, 64)])
+    def test_bit_equal_across_page_sizes(self, G, hd):
+        """The same q and the same K/V rows at the same positions, paged at
+        64 and at 128: the split boundaries and every sum's order depend on
+        positions alone, so the outputs are equal bit for bit. This holds
+        the emulation only, which gathers rows by position and so cannot
+        show a page-size fault; the CUDA kernel's bit-identity across page
+        sizes is checked on the card by ``chip_smoke.py``
+        (``phase_decode_split_checks``)."""
+        rng = np.random.default_rng(60 + G)
+        KV, C = 2, 512
+        rows = rng.normal(size=(6, C, 2 * KV, hd)).astype(np.float32)
+        q = rng.normal(size=(6, KV * G, hd)).astype(np.float32)
+        kvl = np.asarray([1, 63, 64, 65, 300, C], np.int32)
+        outs = []
+        for ps in (64, 128):
+            pages, pt = _paged_from_rows(rng, rows, ps)
+            outs.append(_split_merge_emulation(q, pages, kvl, pt, KV))
+        np.testing.assert_array_equal(outs[0], outs[1])
+        pages, pt = _paged_from_rows(rng, rows, 64)
+        np.testing.assert_allclose(outs[0], _port_decode(q, pages, kvl, pt,
+                                                         KV), **TOL)
+
+    def test_nan_page_stays_in_its_sequence(self):
+        """A NaN page of one sequence reaches none of the other rows, nor
+        any split of theirs; the poisoned row is NaN."""
+        rng = np.random.default_rng(70)
+        KV, G, hd, ps, C = 2, 4, 64, 16, 256
+        ctx = [65, C, 0, 64]
+        q, pages, kvl, pt = _decode_case(rng, ctx, KV, G, hd, ps, C // ps)
+        clean = _split_merge_emulation(q, pages, kvl, pt, KV)
+        poisoned = pages.copy()
+        poisoned[pt[1, 9]] = np.nan                  # one page of sequence 1
+        poisoned[pt[2, 0]] = np.nan                  # the padding row's page
+        out = _split_merge_emulation(q, poisoned, kvl, pt, KV)
+        mates = [0, 2, 3]
+        np.testing.assert_array_equal(out[mates], clean[mates])
+        np.testing.assert_allclose(out[mates], _port_decode(
+            q, poisoned, kvl, pt, KV)[mates], **TOL)
+        assert np.isnan(out[1]).all()
+
+
 class TestWrapperChecks:
     def test_cpu_path_launches_nothing(self):
         rng = np.random.default_rng(30)

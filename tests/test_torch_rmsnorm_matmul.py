@@ -76,3 +76,26 @@ def test_bf16_rounding_order_matches_the_reference_composition():
     out = port_fcm.rmsnorm_matmul(xt, st, wt, EPS)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out, expect, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,D", [(256, 64), (100, 4096)])
+def test_row_normaliser_prepass_matches_rms_norm_and_jax(rows, D):
+    """The plain version of the bf16 pre-pass: each row's normaliser in
+    float32, rounded to bf16. Bit-equal to the normaliser ``rms_norm``
+    multiplies by (x * r with scale 1), and equal to the JAX ``rms_norm``'s
+    ``rsqrt(var + eps).astype(x.dtype)`` (the tolerance of the bf16
+    rounding-order test, 0)."""
+    from deepspeed_tpu_torch.models.transformer import rms_norm
+
+    x, _, _, _ = _inputs(9 + D, (rows,), D, 8)
+    xt = torch.from_numpy(x).bfloat16()
+    r = port_fcm.rms_normaliser(xt, EPS)
+    assert r.dtype == torch.bfloat16 and tuple(r.shape) == (rows, 1)
+    torch.testing.assert_close(xt * r, rms_norm(xt, torch.ones(D).bfloat16(),
+                                                EPS), rtol=0, atol=0)
+    xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    var = jnp.mean(jnp.square(xj.astype(jnp.float32)), axis=-1,
+                   keepdims=True)
+    rj = jax.lax.rsqrt(var + EPS).astype(xj.dtype)
+    np.testing.assert_array_equal(r.float().numpy(),
+                                  np.asarray(rj.astype(jnp.float32)))
