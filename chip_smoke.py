@@ -10,7 +10,9 @@ non-zero before the last line is printed:
   2. build the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one ``nvcc``
      per source, in parallel) and print the build time and ptxas report,
      with the registers, spills and static shared memory of the kernels
-     redesigned for Hopper (``REDESIGNED``);
+     redesigned for Hopper (``REDESIGNED``: K7, K4, K2 and K3); a spill in
+     one of them, or a wgmma serialization warning outside K4's (there
+     since its redesign), fails the run;
   3. hold each kernel against its plain PyTorch version on the card: at the
      serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16) and on
      float32 edge batches (padding rows, zero-length rows, contexts ending
@@ -35,12 +37,15 @@ non-zero before the last line is printed:
   6. hold each training kernel against its plain version: flash attention
      forward (O, LSE), dQ and dK/dV at B 4, S 2048, H 32 (8 KV heads
      repeated), hd 128, bf16, causal, and on float32 edge batches (S 1,
-     100, 257; causal and full; hd 64 and 128; G 1 and 4) and the same
-     tails in bf16; the fused RMSNorm+matmul at M 8192, D 4096, F
-     4096/1024/14336 in bf16 and at M 100, F 1000 in float32 and bf16;
-     each elementwise against a stated limit; K4 twice bit for bit, and a
-     planted fault (one 64-deep k-stage skipped) that must read at least
-     10x its limit;
+     100, 257; causal and full; hd 64 and 128; G 1 and 4) and bf16 ones
+     (S 1, 63, 64, 65, 127, 128, 129, 100, 257: the bf16 backward's tile
+     edges; causal and full; hd 64 and 128); the fused RMSNorm+matmul at M
+     8192, D 4096, F 4096/1024/14336 in bf16 and at M 100, F 1000 in
+     float32 and bf16; each elementwise against a stated limit; K2, K3
+     and K4 twice bit for bit at the main shapes, and planted faults that
+     must read at least 10x their limits (K4: one 64-deep k-stage skipped;
+     K2: one 64-key tile dropped from dQ; K3: one 64-query tile dropped
+     from dK and dV);
   7. the training path: ``initialize`` → ``DeepSpeedEngine.train_batch`` on
      ``TransformerConfig.llama3_8b()`` widths cut to 4 layers with remat
      (random float32 masters from a seeded generator, bench.py's ds_config:
@@ -69,7 +74,9 @@ non-zero before the last line is printed:
      ``load_universal``, then removed;
  12. time each training kernel beside its bound, its plain version and one
      PyTorch call (SDPA forward and backward; ``F.rms_norm`` plus
-     ``torch.matmul``), and each optimizer kernel over every leaf of the
+     ``torch.matmul``), log the port's whole attention backward (delta, K2
+     and K3 through ``_FlashAttention.backward``) beside SDPA's backward,
+     and time each optimizer kernel over every leaf of the
      4-layer model (``torch.optim.AdamW(fused=True)`` and
      ``torch.optim.Adagrad`` as the library calls of K5 and K15);
  13. (after phase 8) hold the block-sparse attention kernels K16-K19
@@ -477,12 +484,19 @@ def ptxas_report(log_text, names):
     return out
 
 
-# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4), by
-# source; their dynamic shared memory comes on top of ptxas's static figure
+# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4, K2
+# and K3), by source; their dynamic shared memory comes on top of ptxas's
+# static figure
 REDESIGNED = {
     "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
     "rmsnorm_matmul": ("rms_rows_kernel", "rmsnorm_matmul_wgmma_kernel"),
+    "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
+                            "flash_bwd_dkv_wgmma_kernel"),
 }
+# a redesigned kernel's row in the kernels line, where that is not its
+# source's name
+REDESIGNED_ROWS = {"flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
+                   "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
 
 
 def phase_build(torch):
@@ -505,6 +519,15 @@ def phase_build(torch):
         log(f"ptxas {name}: {rec['registers']} registers, "
             f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
             f"bytes stack, {rec['smem_bytes']} bytes static smem")
+        check(rec["spill_bytes"] == 0, f"ptxas spilled {name}")
+    for src in REDESIGNED:
+        if "serialized" not in builder.build_log.get(src, ""):
+            continue
+        # K4's wgmma kernel has carried C7512 ("insufficient register
+        # resources") since its redesign; the others may not
+        check(src == "rmsnorm_matmul",
+              f"ptxas serialized the wgmma instructions of {src}")
+        log(f"ptxas serialized some wgmma instructions of {src}")
     torch.cuda.synchronize()
     return report
 
@@ -1021,6 +1044,69 @@ def check_rmsnorm_matmul_faults(torch, fcm, x, scale, w, eps):
     return worst
 
 
+FLASH_TILE = 64                    # the bf16 backward's walked tile
+
+
+def check_flash_bwd_faults(torch, fa, q, k, v, do):
+    """K2 and K3 twice on the same inputs, bit for bit; and two planted
+    faults from the plain math, read against the limits ``check_flash``
+    holds them to: dQ with the 64-key tile [S/2, S/2 + 64) dropped (a dQ
+    block that skipped a walked tile), dK and dV with the 64-query tile
+    [S/2, S/2 + 64) dropped. Each must read at least 10x its limit.
+    → (dQ fault reading, dK/dV fault reading), x the limit."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    del o
+    args = (q, k, v, do, lse, delta, True, scale)
+    dq = fa.flash_attention_bwd_dq(*args)
+    check(torch.equal(dq, fa.flash_attention_bwd_dq(*args)),
+          "flash_attention_bwd_dq: two calls differ")
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          "flash_attention_bwd_dkv: two calls differ")
+    log("check flash_attention_bwd_dq, flash_attention_bwd_dkv: two calls "
+        "bit for bit")
+    del dq, dk, dv, dk2, dv2
+    p, ds = fa.probs_and_ds(q, k, v, do, lse, delta, True, scale)
+    qf, kf, dof = q.float(), k.float(), do.float()
+    t0 = q.shape[1] // 2
+    tile = slice(t0, t0 + FLASH_TILE)
+
+    def limit(ref, terms):
+        return (BF16_ATOL + BF16_RTOL * ref.float().abs()
+                + FLASH_BF16_TERMS * terms)
+
+    ref = fa.flash_attention_bwd_dq_reference(*args)
+    lim = limit(ref, torch.einsum("bhqk,bkhd->bqhd", ds.abs(), kf.abs()))
+    kept = ds.clone()
+    kept[..., tile] = 0
+    fault = torch.einsum("bhqk,bkhd->bqhd", kept, kf).to(q.dtype)
+    x_dq = planted_fault(torch, f"dQ with the key tile [{t0}, "
+                         f"{t0 + FLASH_TILE}) dropped", fault, ref, lim)
+    del ref, lim, fault
+    kept.copy_(ds)
+    kept[:, :, tile] = 0
+    ref_k, ref_v = fa.flash_attention_bwd_dkv_reference(*args)
+    lim = limit(ref_k, torch.einsum("bhqk,bqhd->bkhd", ds.abs(), qf.abs()))
+    fault = torch.einsum("bhqk,bqhd->bkhd", kept, qf).to(k.dtype)
+    x_dk = planted_fault(torch, f"dK with the query tile [{t0}, "
+                         f"{t0 + FLASH_TILE}) dropped", fault, ref_k, lim)
+    del lim, fault
+    kept.copy_(p)
+    kept[:, :, tile] = 0
+    lim = limit(ref_v, torch.einsum("bhqk,bqhd->bkhd", p.abs(), dof.abs()))
+    fault = torch.einsum("bhqk,bqhd->bkhd", kept, dof).to(v.dtype)
+    x_dv = planted_fault(torch, f"dV with the query tile [{t0}, "
+                         f"{t0 + FLASH_TILE}) dropped", fault, ref_v, lim)
+    x_dkv = min(x_dk, x_dv)
+    check(x_dq >= 10.0 and x_dkv >= 10.0,
+          f"K2/K3's limits read a dropped tile at only {x_dq:.2f}x / "
+          f"{x_dkv:.2f}x, not >= 10x")
+    return x_dq, x_dkv
+
+
 def phase_train_kernel_checks(torch):
     """K1-K4 against their plain versions on the card. → the main-shape
     errors by kernel name."""
@@ -1033,6 +1119,9 @@ def phase_train_kernel_checks(torch):
                                m["hd"], torch.bfloat16)
     errs = check_flash(torch, fa, "bf16 main shapes causal", q, k, v, do,
                        True, FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL)
+    (errs["flash_attention_bwd_dq_fault_x"],
+     errs["flash_attention_bwd_dkv_fault_x"]) = check_flash_bwd_faults(
+        torch, fa, q, k, v, do)
     del q, k, v, do
     torch.cuda.empty_cache()
     for S in (1, 100, 257):
@@ -1044,9 +1133,10 @@ def phase_train_kernel_checks(torch):
                     check_flash(torch, fa, f"f32 S={S} causal={causal} "
                                 f"hd={hd} G={G}", q, k, v, do, causal,
                                 F32_TERMS, F32_RTOL, 1e-5)
-    # the same tails on the tensor-core path: S not a multiple of the
-    # 64-row tiles, in bf16
-    for S in (100, 257):
+    # the same tails on the tensor-core path, in bf16, and the lengths
+    # around the bf16 backward's tiles (128 owned rows, 64-row walked
+    # tiles): 1, 63-65, 127-129
+    for S in (1, 63, 64, 65, 127, 128, 129, 100, 257):
         for causal in (True, False):
             for hd in (64, 128):
                 q, k, v, do = flash_inputs(torch, gen, 2, S, 8, 2, hd,
@@ -1277,8 +1367,8 @@ _KERNEL_GROUPS = (            # kernel-name substrings → what they are
     ("K5/K13-K15 fused optimizers", ("adam_kernel", "lamb_kernel",
                                      "lion_kernel", "adagrad_kernel")),
     ("K1 flash forward", ("flash_fwd_kernel",)),
-    ("K2 flash dQ", ("flash_bwd_dq_kernel",)),
-    ("K3 flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("K2 flash dQ", ("flash_bwd_dq_wgmma_kernel",)),
+    ("K3 flash dK/dV", ("flash_bwd_dkv_wgmma_kernel",)),
     ("cuBLAS GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
     ("PyTorch elementwise and reductions", ("at::native::",)),
 )
@@ -1437,9 +1527,20 @@ def phase_train_timing(torch, launches, errs):
                         "scaled_dot_product_attention backward (dQ, dK, dV "
                         "together)"),
             "shape": shape, "bytes": nbytes, "flops": flops})
+        if f"{name}_fault_x" in errs:
+            kernels[-1]["planted_fault_x_limit"] = errs[f"{name}_fault_x"]
         log(f"time {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"plain {plain_ms:.3f} ms, library {lib:.4f} ms)")
         torch.cuda.empty_cache()
+    # the port's whole backward (delta, K2 and K3) beside SDPA's
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa._FlashAttention.apply(qg, kg, vg, True, scale)
+    whole = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 10)
+    log(f"time the port's whole attention backward (delta, K2, K3 through "
+        f"_FlashAttention.backward): {whole:.4f} ms; SDPA's backward "
+        f"{lib_bwd:.4f} ms ({whole / lib_bwd:.2f}x)")
+    del out, qg, kg, vg
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
 
@@ -3617,10 +3718,12 @@ def main():
         others = phase_other_fused(torch, fused_adam["losses"][0])
         checkpoint = phase_checkpoint(torch)
         kernels += phase_train_timing(torch, train_launches, train_errs)
-        for row in kernels:
-            names = REDESIGNED.get(row["name"], ())
-            if names:
-                row["ptxas"] = {n: ptxas[n] for n in names if n in ptxas}
+        for src, names in REDESIGNED.items():
+            for n in names:
+                row = next(r for r in kernels
+                           if r["name"] == REDESIGNED_ROWS.get(n, src))
+                if n in ptxas:
+                    row.setdefault("ptxas", {})[n] = ptxas[n]
         opt_launches = {"fused_adam": fa_launches["fused_adam"],
                         **{n: o["launches"] for n, o in others.items()}}
         kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)

@@ -12,67 +12,102 @@
 //     dQ = dS.K        dK = dS^T.Q        dV = P^T.dO
 // Layouts as the forward: q, k, v, o, dO and the gradients [B, S, H, hd];
 // lse and delta [B, H, S] float32. Element type float32 or bfloat16, hd in
-// {64, 128}.
-//
-// Design. As in the forward, a CUDA block of 4 warps owns 64 rows of one
-// (batch, head) and walks the other side's tiles of 64 itself, so nothing
-// carries across blocks and no atomics are needed:
-//   * dQ: a block owns 64 query rows and walks the kv tiles up to the
-//     diagonal (the reference's dq grid with its causal kv skip);
-//   * dK/dV: a block owns 64 key rows and walks the query tiles from the
-//     first one that sees them (the reference's _causal_q_index), computing
-//     the transposed tiles S^T = K.Q^T and dP^T = V.dO^T directly so that
-//     each warp's accumulator rows are its own key rows.
-// Products run on the tensor cores for bfloat16 (float32 sums) and as exact
-// float32 FMAs for float32 inputs (tile_mma.cuh). With bfloat16 inputs, P
-// and dS are rounded to bfloat16 for the dQ, dK and dV products (as
-// FlashAttention-2 does): a relative error <= 2^-9 per term. P, dS and the
-// row statistics are float32 until then.
+// {64, 128}. Two launches, as the reference: dQ, then dK/dV. Neither uses
+// atomics and every float32 sum runs in a fixed tile order, so the outputs
+// are the same bits from call to call.
 //
 // Bound on this card: operations; per visible (query, key) pair and head,
-// dQ does 6*hd flops (three products, the recomputed scores included:
-// Q.K^T, dO.V^T, dS.K) and dK/dV 8*hd (Q.K^T, dO.V^T, P^T.dO, dS^T.Q),
-// against 989 TFLOP/s dense bfloat16. Left on the table: wgmma, TMA and
-// pipelined tile loads, one fused dQ+dK/dV pass with atomics for dQ.
+// dQ does 6*hd flops (Q.K^T, dO.V^T, dS.K) and dK/dV 8*hd (K.Q^T, V.dO^T,
+// P^T.dO, dS^T.Q): 14*hd for the pair against 989 TFLOP/s dense bfloat16
+// (one fused pass with dQ summed by atomics would do 10*hd, but not in a
+// fixed order).
+//
+// bfloat16, the training path's type: TMA + wgmma kernels, one template
+// for hd 64 and 128. A CTA owns 128 rows of one (batch, head), two
+// warpgroups of 64, and walks the other side in tiles of 64 rows through a
+// ring of kStages shared-memory stages, all loaded by TMA from the
+// [B, S, H*hd] layout as it is (3-D tensor maps, 64-column boxes, 128-byte
+// swizzle; rows past S arrive as zeros), completion counted on mbarriers.
+// Per walked tile each warpgroup issues its two score products with both
+// operands in shared memory (wgmma m64n64k16, K-major), computes P and dS
+// in float32 registers, rounds them to bf16 once and feeds them from
+// registers as the A operand of its second products (B N-major:
+// imm-trans-b). The warpgroups take turns at the tensor cores (named
+// barriers), so one computes P and dS while the other's products run;
+// each warpgroup's issue and wait sit in one block with no divergent code
+// between them, or ptxas serializes the wgmma. P = 2^(s*scale*log2 e -
+// lse*log2 e) on the special-function unit (ex2.approx, relative error
+// ~2^-22, two instructions a score; expf took ~10 and the scores' loop
+// most of the time), and the mask is evaluated only on diagonal and tail
+// tiles.
+//   * dQ: a CTA owns 128 query rows and walks key tiles up to its diagonal
+//     (the reference's _causal_kv_index), heaviest CTAs first within each
+//     raster group; S = Q.K^T, dP = dO.V^T, dQ += dS.K. Warp-specialised:
+//     a producer warpgroup gives its registers back (setmaxnreg 24) and
+//     one of its threads fills the ring; the consumers take 240.
+//   * dK/dV: a CTA owns 128 key rows and walks query tiles from the first
+//     that sees them (_causal_q_index); it computes the transposed tiles
+//     S^T = K.Q^T and dP^T = V.dO^T, so each warpgroup's accumulator rows
+//     are its own keys, then dV += P^T.dO and dK += dS^T.Q. Its consumers
+//     hold 128 accumulator floats a thread at hd 128 and need more than
+//     setmaxnreg's 240 (ptxas spilled them), so it has no producer: 256
+//     threads, 255 registers, and warp 0 fills the ring a tile ahead (its
+//     lanes copy the tile's lse and delta rows with cp.async, zeros past S).
+// Rounding as the earlier kernels and FlashAttention-2: scores, row
+// statistics, P, dP and dS in float32; P and dS rounded to bf16 once,
+// before the second products (a relative error <= 2^-9 per term); float32
+// sums in tile order; each output rounded once. CTAs are rastered in
+// groups of kHeadGroup (batch, head) pairs, so the walked tensors of the
+// CTAs in flight stay in the 50 MB L2. Left on the table: a producer for
+// dK/dV (its refill stalls warpgroup 0), folding delta into the dQ pass,
+// score products with an owned operand in registers.
+//
+// float32 (the card's edge checks) keeps the exact CUDA-core path, wgmma
+// having no full-float32 mode: a block of 4 warps owns 64 rows and walks
+// 64-row tiles it loads itself, with float32 FMAs in the accumulator
+// layout of tile_mma.cuh.
+#include <type_traits>
+
+#include "hopper_async.cuh"
 #include "tile_mma.cuh"
 
 namespace dstorch {
 namespace {
 
+// ---- float32: the exact CUDA-core kernels -------------------------------
 constexpr int kB = 64;       // rows per block and per walked tile
 constexpr int kThreads = 128;
+constexpr int kLD = kPad<float>;
 
-template <typename T, int HD>
+template <int HD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(T) * (4 * kB * (HD + kPad<T>) + kB * (kB + kPad<T>));
+  return sizeof(float) * (4 * kB * (HD + kLD) + kB * (kB + kLD));
 }
 
-template <typename T, int HD>
+template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(T) * (4 * kB * (HD + kPad<T>) + 2 * kB * (kB + kPad<T>)) +
+  return sizeof(float) * (4 * kB * (HD + kLD) + 2 * kB * (kB + kLD)) +
          sizeof(float) * 2 * kB;
 }
 
-// --------------------------------------------------------------------- //
-// dQ
-// --------------------------------------------------------------------- //
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int S, int H, float scale, int causal) {
-  constexpr int LD = HD + kPad<T>;
-  constexpr int LDP = kB + kPad<T>;
+  constexpr int LD = HD + kLD;
+  constexpr int LDP = kB + kLD;
   constexpr int NT_S = kB / 8;
   constexpr int NT_O = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + kB * LD;
-  T* Ks = dOs + kB * LD;
-  T* Vs = Ks + kB * LD;
-  T* dSs = Vs + kB * LD;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + kB * LD;
+  float* Ks = dOs + kB * LD;
+  float* Vs = Ks + kB * LD;
+  float* dSs = Vs + kB * LD;
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -82,10 +117,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t stat = ((size_t)b * H + h) * S;
   const int q0 = iq * kB;
 
-  load_tile<T, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
-                                 row_stride, S - q0);
-  load_tile<T, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
-                                 row_stride, S - q0);
+  load_tile<float, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
+                                     row_stride, S - q0);
+  load_tile<float, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
+                                     row_stride, S - q0);
   const int row_lo = q0 + warp * 16 + g;
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -99,14 +134,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_acc(acc);
   const int nk = (S + kB - 1) / kB;
   const int n_tiles = causal ? min(nk, iq + 1) : nk;
-  T* dSw = dSs + warp * 16 * LDP;
+  float* dSw = dSs + warp * 16 * LDP;
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int j0 = jt * kB;
     __syncthreads();
-    load_tile<T, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
-                                   row_stride, S - j0);
-    load_tile<T, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
-                                   row_stride, S - j0);
+    load_tile<float, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
+                                       row_stride, S - j0);
+    load_tile<float, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
+                                       row_stride, S - j0);
     __syncthreads();
 
     float s[1][NT_S][4], dp[1][NT_S][4];
@@ -137,7 +172,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    T* out = dq + base + (size_t)row * row_stride;
+    float* out = dq + base + (size_t)row * row_stride;
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
       store_pair(out + 8 * nt + 2 * t, acc[0][nt][2 * r],
@@ -146,29 +181,27 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------------- //
-// dK, dV
-// --------------------------------------------------------------------- //
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, float scale,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int H, float scale,
                      int causal) {
-  constexpr int LD = HD + kPad<T>;
-  constexpr int LDP = kB + kPad<T>;
+  constexpr int LD = HD + kLD;
+  constexpr int LDP = kB + kLD;
   constexpr int NT_S = kB / 8;
   constexpr int NT_O = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + kB * LD;
-  T* Qs = Vs + kB * LD;
-  T* dOs = Qs + kB * LD;
-  T* PTs = dOs + kB * LD;
-  T* dSTs = PTs + kB * LDP;
-  float* lse_s = reinterpret_cast<float*>(dSTs + kB * LDP);
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kB * LD;
+  float* Qs = Vs + kB * LD;
+  float* dOs = Qs + kB * LD;
+  float* PTs = dOs + kB * LD;
+  float* dSTs = PTs + kB * LDP;
+  float* lse_s = dSTs + kB * LDP;
   float* delta_s = lse_s + kB;
 
   const int jk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -179,10 +212,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t stat = ((size_t)b * H + h) * S;
   const int j0 = jk * kB;
 
-  load_tile<T, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
-                                 row_stride, S - j0);
-  load_tile<T, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
-                                 row_stride, S - j0);
+  load_tile<float, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
+                                     row_stride, S - j0);
+  load_tile<float, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
+                                     row_stride, S - j0);
 
   float acc_k[1][NT_O][4], acc_v[1][NT_O][4];
   zero_acc(acc_k);
@@ -190,15 +223,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key_lo = j0 + warp * 16 + g;          // keys key_lo, key_lo + 8
   const int nq = (S + kB - 1) / kB;
   const int first = causal ? jk : 0;              // kB query rows per tile
-  T* PTw = PTs + warp * 16 * LDP;
-  T* dSTw = dSTs + warp * 16 * LDP;
+  float* PTw = PTs + warp * 16 * LDP;
+  float* dSTw = dSTs + warp * 16 * LDP;
   for (int it = first; it < nq; ++it) {
     const int q0 = it * kB;
     __syncthreads();
-    load_tile<T, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
-                                   row_stride, S - q0);
-    load_tile<T, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
-                                   row_stride, S - q0);
+    load_tile<float, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
+                                       row_stride, S - q0);
+    load_tile<float, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
+                                       row_stride, S - q0);
     if (threadIdx.x < kB) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = row < S ? lse[stat + row] : 0.f;
@@ -240,8 +273,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int key = key_lo + 8 * r;
     if (key >= S) continue;
-    T* ok_ = dk + base + (size_t)key * row_stride;
-    T* ov_ = dv + base + (size_t)key * row_stride;
+    float* ok_ = dk + base + (size_t)key * row_stride;
+    float* ov_ = dv + base + (size_t)key * row_stride;
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
       store_pair(ok_ + 8 * nt + 2 * t, acc_k[0][nt][2 * r],
@@ -252,40 +285,584 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int S, int H, float scale, int causal,
-                      cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, HD>;
-  const size_t smem = dq_smem_bytes<T, HD>();
+template <int HD>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int S, int H,
+                          float scale, int causal, cudaStream_t stream) {
+  auto kern = flash_bwd_dq_kernel<HD>;
+  const size_t smem = dq_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kB - 1) / kB, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), S, H, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int S,
-                       int H, float scale, int causal, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
-  const size_t smem = dkv_smem_bytes<T, HD>();
+template <int HD>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B,
+                           int S, int H, float scale, int causal,
+                           cudaStream_t stream) {
+  auto kern = flash_bwd_dkv_kernel<HD>;
+  const size_t smem = dkv_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kB - 1) / kB, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, scale,
+      causal);
   return cudaGetLastError();
+}
+
+// ---- bfloat16: TMA + wgmma, two warpgroups in turns ---------------------
+namespace wg {
+constexpr int kOwn = 128;                 // rows a CTA owns
+constexpr int kWalk = 64;                 // rows of a walked tile
+constexpr int kStages = 3;
+constexpr int kGroups = 2;                // consumer warpgroups, 64 rows each
+// dQ: + a producer warpgroup; 168 registers a thread at entry (65536 /
+// 384, in steps of 8), the producer gives 144 back, the consumers take 72
+constexpr int kThreadsDq = (kGroups + 1) * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+// dK/dV: its consumers need more than 240 (dK and dV accumulate 128
+// floats a thread at hd 128), so no producer: 255 registers a thread,
+// and warp 0 fills the ring
+constexpr int kThreadsDkv = kGroups * 128;
+constexpr int kHeadGroup = 16;            // (batch, head) pairs a raster group
+constexpr int kBoxCols = 64;              // a TMA box row: 128 bytes
+constexpr int kWalkBox = kWalk * 128;     // bytes of a [64 x 64] box
+
+template <int HD, bool STATS>
+struct Layout {
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kOwnBox = kOwn * 128;           // a [128 x 64] box
+  static constexpr int kOwnBytes = kBoxes * kOwnBox;   // one owned tensor
+  static constexpr int kWalkBytes = kBoxes * kWalkBox; // one walked tensor
+  // STATS: the walked rows' lse and delta (dK/dV), after the tiles
+  static constexpr int kStats = STATS ? 2 * kWalk * 4 : 0;
+  static constexpr int kTx = 2 * kWalkBytes;           // a stage's TMA bytes
+  static constexpr int kStageBytes = (kTx + kStats + 1023) / 1024 * 1024;
+  static constexpr int kBars = 1 + 2 * kStages;        // owned, full, empty
+  static constexpr int kSmem =
+      2 * kOwnBytes + kStages * kStageBytes + 8 * kBars + 1024;
+};
+
+// The CTA's (rank, batch*H + head): (batch, head) pairs in raster groups
+// of kHeadGroup, each group's CTAs in rank order across its pairs.
+__device__ __forceinline__ void raster(int BH, int ranks, int& rank,
+                                       int& bh) {
+  const int per_group = kHeadGroup * ranks;
+  const int first = (blockIdx.x / per_group) * kHeadGroup;
+  const int gsize = min(BH - first, kHeadGroup);
+  const int r = blockIdx.x % per_group;
+  rank = r / gsize;
+  bh = first + r % gsize;
+}
+
+// The warpgroups' turns at the tensor cores: warpgroup g issues a batch of
+// wgmma after wait() and lets the other go with pass(), so one computes P
+// and dS while the other's products run (named barriers 1 and 2, one per
+// warpgroup; warpgroup 1 passes first, once, before its first turn).
+struct Turns {
+  int g;
+  __device__ __forceinline__ void wait() const {
+    named_bar_sync(1 + g, kGroups * 128);
+  }
+  __device__ __forceinline__ void pass() const {
+    named_bar_arrive(2 - g, kGroups * 128);
+  }
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit: relative error ~2^-22, subnormal
+// results flushed to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// Issues S = A0.B0^T and dP = A1.B1^T for one warpgroup, both [64 x 64],
+// as one wgmma group: A0, A1 its 64 owned rows (boxes `a_box` bytes
+// apart), B0, B1 the walked tile's 64 rows; all K-major over hd.
+template <int HD>
+__device__ __forceinline__ void score_products(float (&s)[32],
+                                               float (&dp)[32], uint32_t a0,
+                                               uint32_t a1, uint32_t b0,
+                                               uint32_t b1, uint32_t a_box) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(s, wgmma_desc_kmajor(a0 + ao),
+                       wgmma_desc_kmajor(b0 + bo), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(dp, wgmma_desc_kmajor(a1 + ao),
+                       wgmma_desc_kmajor(b1 + bo), kk);
+  }
+  wgmma_commit();
+}
+
+// Issues acc += A.B over the walked tile's 64 rows: A a [64 x 64] tile as
+// bf16 fragments (k16 slice j in a[j]), B the walked tile [64 x HD] read
+// with HD contiguous (64-column boxes kWalkBox apart, 8-row groups 1024
+// apart).
+template <int HD>
+__device__ __forceinline__ void walk_product(float (&acc)[HD / 2],
+                                             const uint32_t (&a)[4][4],
+                                             uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t desc = wgmma_desc_sw128(b + j * 16 * 128, kWalkBox, 1024);
+    if constexpr (HD == 128) {
+      wgmma_m64n128k16_rs(acc, a[j], desc);
+    } else {
+      wgmma_m64n64k16_rs(acc, a[j], desc);
+    }
+  }
+}
+
+// Rows row_lo and row_lo + 8 of a warp's [16 x HD] accumulator slice,
+// rounded once to bfloat16; rows at or past S are not written.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[HD / 2],
+                                           int row_lo, int S, int H, int b,
+                                           int h) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* o = out + (((size_t)b * S + row) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      store_pair(o + 8 * j + 2 * t, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// `fills` arrivals complete a stage: the filling thread's expect-tx, and
+// (dK/dV) one a lane of warp 0 once its cp.async copies of row statistics
+// landed
+__device__ __forceinline__ void init_bars(uint64_t* bars, int fills) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);                          // the owned rows
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&bars[1 + i], fills);                // stage i full
+      mbar_init(&bars[1 + kStages + i], kGroups * 4);  // i consumed
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+}  // namespace wg
+
+// dQ: a CTA owns 128 query rows and walks 64-key tiles.
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreadsDq, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int BH, int S,
+                          int H, float scale, int causal) {
+  using L = wg::Layout<HD, false>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = wg::align1024(smem_raw);
+  unsigned char* dOs = Qs + L::kOwnBytes;
+  unsigned char* stages = dOs + L::kOwnBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stages + wg::kStages * L::kStageBytes);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + wg::kStages;
+
+  const int ntiles = (S + wg::kOwn - 1) / wg::kOwn;
+  int rank, bh;
+  wg::raster(BH, ntiles, rank, bh);
+  const int b = bh / H, h = bh % H, col = h * HD;
+  const int q0 = (ntiles - 1 - rank) * wg::kOwn;  // the last rows walk most
+  const int nk = (S + wg::kWalk - 1) / wg::kWalk;
+  const int n_tiles = causal ? min(nk, (q0 + wg::kOwn) / wg::kWalk) : nk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  wg::init_bars(bars, 1);
+
+  // the producer: one thread issues every TMA load, Q and dO once, then K
+  // and V tiles into the ring as its stages come free
+  auto fill = [&](int jt) {
+    const int st = jt % wg::kStages;
+    unsigned char* base = stages + st * L::kStageBytes;
+    mbar_arrive_expect_tx(&full[st], L::kTx);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load_3d(base + c * wg::kWalkBox, &tm_k, &full[st], col + 64 * c,
+                  jt * wg::kWalk, b);
+      tma_load_3d(base + L::kWalkBytes + c * wg::kWalkBox, &tm_v, &full[st],
+                  col + 64 * c, jt * wg::kWalk, b);
+    }
+  };
+  if (warp >= wg::kGroups * 4) {
+    setmaxnreg_dec<wg::kProducerRegs>();
+    if (warp == wg::kGroups * 4 && lane == 0) {
+      mbar_arrive_expect_tx(&bars[0], 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_3d(Qs + c * L::kOwnBox, &tm_q, &bars[0], col + 64 * c, q0,
+                    b);
+        tma_load_3d(dOs + c * L::kOwnBox, &tm_do, &bars[0], col + 64 * c,
+                    q0, b);
+      }
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int st = jt % wg::kStages;
+        mbar_wait(&empty[st], ((jt / wg::kStages) & 1) ^ 1);
+        fill(jt);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cg owns query rows [rw, rw + 64)
+  setmaxnreg_inc<wg::kConsumerRegs>();
+  const int cg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const wg::Turns turns{cg};
+  const int rw = q0 + 64 * cg;
+  const int row_lo = rw + 16 * wq + g;            // rows row_lo, row_lo + 8
+  // P = exp(s*scale - lse), taken as 2^(s*scale*log2 e - lse*log2 e)
+  const float scale_log2 = scale * wg::kLog2e;
+  float lse_log2[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    lse_log2[r] = row < S ? lse[(size_t)bh * S + row] * wg::kLog2e : 0.f;
+    delta_r[r] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_own = smem_addr(Qs) + cg * 64 * 128;
+  const uint32_t do_own = smem_addr(dOs) + cg * 64 * 128;
+  mbar_wait(&bars[0], 0);
+  if (cg == 1) turns.pass();
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int st = jt % wg::kStages;
+    const int j0 = jt * wg::kWalk;
+    const bool last_turn = cg == 1 && jt + 1 == n_tiles;
+    const uint32_t k_s = smem_addr(stages + st * L::kStageBytes);
+    const uint32_t v_s = k_s + L::kWalkBytes;
+    mbar_wait(&full[st], (jt / wg::kStages) & 1);
+    __syncwarp();  // wgmma needs the warp converged
+    if (rw < S && !(causal && j0 > rw)) {
+      float s[32], dp[32];
+      turns.wait();
+      wg::score_products<HD>(s, dp, q_own, do_own, k_s, v_s, L::kOwnBox);
+      turns.pass();
+      wgmma_wait<0>();
+      wgmma_fence_operand(s);
+      wgmma_fence_operand(dp);
+      // dS = P*(dP - delta)*scale, rounded to bf16 pairs; the mask only on
+      // the diagonal and tail tiles (EDGE)
+      uint32_t da[4][4];
+      auto probs = [&](auto edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float p = wg::exp2_approx(
+                fmaf(s[i], scale_log2, -lse_log2[e >> 1]));
+            ds[e] = p * (dp[i] - delta_r[e >> 1]) * scale;
+            if constexpr (decltype(edge)::value) {
+              const int row = row_lo + 8 * (e >> 1);
+              const int key = j0 + 8 * j + 2 * t + (e & 1);
+              if (key >= S || (causal && row < key)) ds[e] = 0.f;
+            }
+          }
+          da[j / 2][2 * (j % 2)] = wg::pack_rn(ds[0], ds[1]);
+          da[j / 2][2 * (j % 2) + 1] = wg::pack_rn(ds[2], ds[3]);
+        }
+      };
+      if ((causal && j0 == rw) || j0 + wg::kWalk > S) {
+        probs(std::true_type{});
+      } else {
+        probs(std::false_type{});
+      }
+      turns.wait();
+      wgmma_fence();
+      wg::walk_product<HD>(acc, da, k_s);         // dQ += dS.K
+      wgmma_commit();
+      if (!last_turn) turns.pass();
+      wgmma_wait<0>();
+      wgmma_fence_operand(acc);
+    } else {                                      // nothing visible
+      turns.wait();
+      turns.pass();
+      turns.wait();
+      if (!last_turn) turns.pass();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  wg::store_rows<HD>(dq, acc, row_lo, S, H, b, h);
+}
+
+// dK, dV: a CTA owns 128 key rows and walks 64-query tiles.
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreadsDkv, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int BH, int S,
+                           int H, float scale, int causal) {
+  using L = wg::Layout<HD, true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = wg::align1024(smem_raw);
+  unsigned char* Vs = Ks + L::kOwnBytes;
+  unsigned char* stages = Vs + L::kOwnBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stages + wg::kStages * L::kStageBytes);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + wg::kStages;
+
+  const int ntiles = (S + wg::kOwn - 1) / wg::kOwn;
+  int rank, bh;
+  wg::raster(BH, ntiles, rank, bh);
+  const int b = bh / H, h = bh % H, col = h * HD;
+  const int k0 = rank * wg::kOwn;                 // the first keys walk most
+  const int nq = (S + wg::kWalk - 1) / wg::kWalk;
+  const int first = causal ? k0 / wg::kWalk : 0;
+  const int n_tiles = nq - first;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  wg::init_bars(bars, 33);
+
+  // warp 0 fills the ring, the first tile now and each next one a tile
+  // ahead, into the stage that tile - 2 left: its thread 0 issues the TMA
+  // loads (K and V once, Q and dO tiles), each lane copies two of the
+  // tile's lse and delta rows (zeros past S) with cp.async
+  auto fill = [&](int n) {
+    const int st = n % wg::kStages;
+    unsigned char* base = stages + st * L::kStageBytes;
+    const int q0 = (first + n) * wg::kWalk;
+    float* stats = reinterpret_cast<float*>(base + L::kTx);
+    for (int r = lane; r < wg::kWalk; r += 32) {
+      const bool in = q0 + r < S;
+      const size_t at = in ? (size_t)bh * S + q0 + r : 0;
+      cp_async4(stats + r, lse + at, in);
+      cp_async4(stats + wg::kWalk + r, delta + at, in);
+    }
+    cp_async_mbar_arrive(&full[st]);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[st], L::kTx);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_3d(base + c * wg::kWalkBox, &tm_q, &full[st], col + 64 * c,
+                    q0, b);
+        tma_load_3d(base + L::kWalkBytes + c * wg::kWalkBox, &tm_do,
+                    &full[st], col + 64 * c, q0, b);
+      }
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&bars[0], 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_3d(Ks + c * L::kOwnBox, &tm_k, &bars[0], col + 64 * c, k0,
+                    b);
+        tma_load_3d(Vs + c * L::kOwnBox, &tm_v, &bars[0], col + 64 * c, k0,
+                    b);
+      }
+    }
+    fill(0);
+  }
+
+  // warpgroup cg owns keys [kw, kw + 64)
+  const int cg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const wg::Turns turns{cg};
+  const int kw = k0 + 64 * cg;
+  const int key_lo = kw + 16 * wq + g;            // keys key_lo, key_lo + 8
+  const float scale_log2 = scale * wg::kLog2e;    // as in the dQ kernel
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t k_own = smem_addr(Ks) + cg * 64 * 128;
+  const uint32_t v_own = smem_addr(Vs) + cg * 64 * 128;
+  mbar_wait(&bars[0], 0);
+  if (cg == 1) turns.pass();
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % wg::kStages;
+    if (warp == 0 && n + 1 < n_tiles) {
+      if (n >= 2) mbar_wait(&empty[(n + 1) % wg::kStages],
+                            ((n - 2) / wg::kStages) & 1);
+      fill(n + 1);
+    }
+    __syncwarp();
+    const int q0 = (first + n) * wg::kWalk;
+    const bool last_turn = cg == 1 && n + 1 == n_tiles;
+    const unsigned char* base = stages + st * L::kStageBytes;
+    const uint32_t q_s = smem_addr(base), do_s = q_s + L::kWalkBytes;
+    mbar_wait(&full[st], (n / wg::kStages) & 1);
+    __syncwarp();  // wgmma needs the warp converged
+    if (kw < S && !(causal && q0 < kw)) {
+      // S^T = K.Q^T and dP^T = V.dO^T: rows are keys, columns queries
+      float s[32], dp[32];
+      turns.wait();
+      wg::score_products<HD>(s, dp, k_own, v_own, q_s, do_s, L::kOwnBox);
+      turns.pass();
+      const float* lse_s = reinterpret_cast<const float*>(base + L::kTx);
+      const float* delta_s = lse_s + wg::kWalk;
+      wgmma_wait<0>();
+      wgmma_fence_operand(s);
+      wgmma_fence_operand(dp);
+      // P^T and dS^T rounded to bf16 pairs; the mask only on the diagonal
+      // and tail tiles (EDGE)
+      uint32_t pa[4][4], da[4][4];
+      auto probs = [&](auto edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(delta_s + c);
+          const float l_log2[2] = {l2.x * wg::kLog2e, l2.y * wg::kLog2e};
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float d = (e & 1) ? d2.y : d2.x;
+            p[e] = wg::exp2_approx(fmaf(s[i], scale_log2, -l_log2[e & 1]));
+            ds[e] = p[e] * (dp[i] - d) * scale;
+            if constexpr (decltype(edge)::value) {
+              const int key = key_lo + 8 * (e >> 1);
+              const int query = q0 + c + (e & 1);
+              if (query >= S || (causal && query < key)) p[e] = ds[e] = 0.f;
+            }
+          }
+          pa[j / 2][2 * (j % 2)] = wg::pack_rn(p[0], p[1]);
+          pa[j / 2][2 * (j % 2) + 1] = wg::pack_rn(p[2], p[3]);
+          da[j / 2][2 * (j % 2)] = wg::pack_rn(ds[0], ds[1]);
+          da[j / 2][2 * (j % 2) + 1] = wg::pack_rn(ds[2], ds[3]);
+        }
+      };
+      if ((causal && q0 == kw) || q0 + wg::kWalk > S) {
+        probs(std::true_type{});
+      } else {
+        probs(std::false_type{});
+      }
+      turns.wait();
+      wgmma_fence();
+      wg::walk_product<HD>(acc_v, pa, do_s);      // dV += P^T.dO
+      wg::walk_product<HD>(acc_k, da, q_s);       // dK += dS^T.Q
+      wgmma_commit();
+      if (!last_turn) turns.pass();
+      wgmma_wait<0>();
+      wgmma_fence_operand(acc_v);
+      wgmma_fence_operand(acc_k);
+    } else {                                      // nothing visible
+      turns.wait();
+      turns.pass();
+      turns.wait();
+      if (!last_turn) turns.pass();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  wg::store_rows<HD>(dk, acc_k, key_lo, S, H, b, h);
+  wg::store_rows<HD>(dv, acc_v, key_lo, S, H, b, h);
+}
+
+// Tensor maps of a [B, S, H*hd] bfloat16 tensor with boxes of `rows` x 64.
+bool encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+                 int S, int H, int hd, int rows) {
+  return encode_bf16_3d(enc, map, ptr, B, S, (uint64_t)H * hd, rows,
+                        wg::kBoxCols, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int HD>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int B, int S, int H,
+                           float scale, int causal, cudaStream_t stream) {
+  using L = wg::Layout<HD, false>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  // encoded every call: the caching allocator reuses addresses
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_rows(enc, &tm_q, q, B, S, H, HD, wg::kOwn) ||
+      !encode_rows(enc, &tm_do, dout, B, S, H, HD, wg::kOwn) ||
+      !encode_rows(enc, &tm_k, k, B, S, H, HD, wg::kWalk) ||
+      !encode_rows(enc, &tm_v, v, B, S, H, HD, wg::kWalk))
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dq_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = B * H * ((S + wg::kOwn - 1) / wg::kOwn);
+  kern<<<blocks, wg::kThreadsDq, L::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dq),
+      B * H, S, H, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int B,
+                            int S, int H, float scale, int causal,
+                            cudaStream_t stream) {
+  using L = wg::Layout<HD, true>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_rows(enc, &tm_q, q, B, S, H, HD, wg::kWalk) ||
+      !encode_rows(enc, &tm_do, dout, B, S, H, HD, wg::kWalk) ||
+      !encode_rows(enc, &tm_k, k, B, S, H, HD, wg::kOwn) ||
+      !encode_rows(enc, &tm_v, v, B, S, H, HD, wg::kOwn))
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dkv_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = B * H * ((S + wg::kOwn - 1) / wg::kOwn);
+  kern<<<blocks, wg::kThreadsDkv, L::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      B * H, S, H, scale, causal);
+  return cudaGetLastError();
+}
+
+// The flat [B*H*S] row offsets and the grid are int: refuse what overflows.
+bool fits(int B, int S, int H) {
+  return (long long)B * H * S < (1ll << 31);
 }
 
 }  // namespace
@@ -300,20 +877,21 @@ extern "C" int flash_attention_bwd_dq_launch(
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   if (S <= 0 || B <= 0 || H <= 0) return 0;
+  if (!fits(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     if (hd == 128)
-      return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, d, dq, B, S, H,
-                                           scale, causal, st);
+      return launch_dq_bf16<128>(q, k, v, dout, l, d, dq, B, S, H, scale,
+                                 causal, st);
     if (hd == 64)
-      return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, d, dq, B, S, H,
-                                          scale, causal, st);
+      return launch_dq_bf16<64>(q, k, v, dout, l, d, dq, B, S, H, scale,
+                                causal, st);
   } else if (dtype == kF32) {
     if (hd == 128)
-      return launch_dq<float, 128>(q, k, v, dout, l, d, dq, B, S, H, scale,
-                                   causal, st);
+      return launch_dq_f32<128>(q, k, v, dout, l, d, dq, B, S, H, scale,
+                                causal, st);
     if (hd == 64)
-      return launch_dq<float, 64>(q, k, v, dout, l, d, dq, B, S, H, scale,
-                                  causal, st);
+      return launch_dq_f32<64>(q, k, v, dout, l, d, dq, B, S, H, scale,
+                               causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -327,20 +905,21 @@ extern "C" int flash_attention_bwd_dkv_launch(
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   if (S <= 0 || B <= 0 || H <= 0) return 0;
+  if (!fits(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     if (hd == 128)
-      return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, d, dk, dv, B, S,
-                                            H, scale, causal, st);
+      return launch_dkv_bf16<128>(q, k, v, dout, l, d, dk, dv, B, S, H,
+                                  scale, causal, st);
     if (hd == 64)
-      return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, d, dk, dv, B, S,
-                                           H, scale, causal, st);
+      return launch_dkv_bf16<64>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
+                                 causal, st);
   } else if (dtype == kF32) {
     if (hd == 128)
-      return launch_dkv<float, 128>(q, k, v, dout, l, d, dk, dv, B, S, H,
-                                    scale, causal, st);
+      return launch_dkv_f32<128>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
+                                 causal, st);
     if (hd == 64)
-      return launch_dkv<float, 64>(q, k, v, dout, l, d, dk, dv, B, S, H,
-                                   scale, causal, st);
+      return launch_dkv_f32<64>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
+                                causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 // Asynchronous-copy and warpgroup helpers for the Hopper kernels of the
-// PyTorch port (sm_90a): cp.async, mbarriers, TMA tensor loads and the
-// bf16 wgmma with A from registers. Used by decode_paged_attention.cu
-// (cp.async) and rmsnorm_matmul.cu (the rest); tile_mma.cuh's mma.sync
-// helpers are separate and unchanged.
+// PyTorch port (sm_90a): cp.async, mbarriers, TMA tensor loads and their
+// host-side tensor maps, setmaxnreg, and the bf16 wgmma shapes the kernels
+// use. Used by decode_paged_attention.cu (cp.async), rmsnorm_matmul.cu and
+// flash_attention_bwd.cu (the rest); tile_mma.cuh's mma.sync helpers are
+// separate and unchanged.
 #pragma once
 
 #include <cuda.h>
@@ -30,6 +31,14 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// 4 bytes, or 4 zero bytes without reading src when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 
 // ---- mbarriers -----------------------------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -52,6 +61,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// One of the current phase's arrivals, made once every cp.async this
+// thread issued before it has landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
 }
@@ -94,6 +110,39 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- named barriers (barrier 0 is __syncthreads') ----------------------
+// `threads` (a multiple of 32) arrive at barrier `id`; sync waits for them,
+// arrive does not.
+__device__ __forceinline__ void named_bar_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(uint32_t id,
+                                                 uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- register reallocation between warpgroups (warp specialisation) ------
+// Every warp of the warpgroup executes it; the producer gives registers
+// back, the consumers take them (a consumer blocks until they are free).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // ---- ldmatrix ------------------------------------------------------------
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -128,6 +177,18 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keep the compiler from moving accumulator accesses across a wgmma.
 __device__ __forceinline__ void wgmma_fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) wgmma_fence_operand(r[i]);
+}
+// A K-major operand (rows of 64 bf16 = 128 bytes, as a 64-column TMA box
+// with 128-byte swizzle writes them): 8-row groups 1024 bytes apart (SBO);
+// the leading offset is unused. The k16 slice j of a box starts 32*j bytes
+// into it; the next 64 columns are the next box.
+__device__ __forceinline__ uint64_t wgmma_desc_kmajor(uint32_t addr) {
+  return wgmma_desc_sw128(addr, 16, 1024);
 }
 
 // D[64 x 256] += A[64 x 16] * B[16 x 256], bf16 in, float32 sums. A is a
@@ -185,6 +246,159 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
       : "memory");
+}
+
+
+// The shapes of the flash-attention backward (flash_attention_bwd.cu):
+// S = Q.K^T and dP = dO.V^T with both operands K-major in shared memory
+// (D overwritten when `accumulate` is 0), and the second products with the
+// rounded P or dS as the register A operand. d[i] holds row 16*warp +
+// lane/4 + 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2, as above; the A
+// fragment of k16 slice j of such an accumulator, rounded to bf16 pairs, is
+// (d[8j], d[8j+1]), (d[8j+2], d[8j+3]), (d[8j+4], d[8j+5]), (d[8j+6],
+// d[8j+7]).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b)
+      : "memory");
+}
+
+
+// ---- host: TMA tensor maps ----------------------------------------------
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// libraries are not linked against libcuda); nullptr when unavailable.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dimensions, innermost first: dims[i] elements,
+// strides[i] the bytes between neighbours along dimension i + 1, boxes of
+// box[i] elements. Out-of-bounds elements of a box arrive as zeros.
+inline bool encode_map(EncodeTiled enc, CUtensorMap* map,
+                       CUtensorMapDataType type, uint32_t rank,
+                       const void* ptr, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bfloat16 row-major [rows, cols] tensor map with boxes of [box_rows,
+// box_cols]; rank 1 when rows == 0.
+inline bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                        uint64_t rows, uint64_t cols, uint32_t box_rows,
+                        uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  return encode_map(enc, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rows ? 2 : 1,
+                    ptr, dims, strides, box, swizzle);
+}
+
+// A bfloat16 row-major [d2, d1, d0] tensor map with boxes of [1, box1,
+// box0].
+inline bool encode_bf16_3d(EncodeTiled enc, CUtensorMap* map,
+                           const void* ptr, uint64_t d2, uint64_t d1,
+                           uint64_t d0, uint32_t box1, uint32_t box0,
+                           CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  return encode_map(enc, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims,
+                    strides, box, swizzle);
 }
 
 }  // namespace dstorch

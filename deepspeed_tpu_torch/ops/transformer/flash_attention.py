@@ -27,8 +27,9 @@ which the CPU tests hold against the JAX kernels in interpret mode. The
 backward's plain versions are the recompute math of ``_bwd`` (P from the
 LSE), not autograd of the plain forward. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``. The CUDA kernels choose their own
-tiles (64 x 64); the model's ``flash_block_q``/``flash_block_k`` do not
-steer them.
+tiles (the forward and the float32 backward 64 x 64; the bf16 backward
+owns 128 rows a block and walks tiles of 64); the model's
+``flash_block_q``/``flash_block_k`` do not steer them.
 """
 from __future__ import annotations
 
@@ -53,7 +54,9 @@ _DKV_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]
 def _check_kernel_inputs(name, tensors, stats=()):
     """What the CUDA kernels take: one CUDA device, contiguous float32 or
     bfloat16 ``[B, S, H, hd]`` tensors of one dtype with hd in {64, 128},
-    16-byte aligned; contiguous float32 row statistics."""
+    16-byte aligned, with rows (``H·hd`` elements) a multiple of 16 bytes
+    (TMA's stride rule for the bf16 backward's tensor maps); contiguous
+    float32 row statistics."""
     first = tensors[0]
     dev = first.device
     if dev.type != "cuda":
@@ -73,6 +76,9 @@ def _check_kernel_inputs(name, tensors, stats=()):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
                              f"aligned")
+        if t.stride(1) * t.element_size() % 16:
+            raise ValueError(f"{name}: rows of {t.stride(1)} elements are "
+                             f"not a multiple of 16 bytes")
     B, S, H, _ = first.shape
     for t in stats:
         if (t.device != dev or t.dtype != torch.float32
@@ -187,8 +193,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                            scale: Optional[float] = None) -> torch.Tensor:
     """dQ of :func:`flash_attention_fwd` from the saved LSE and δ.
 
-    Replaces ``_bwd_dq_kernel``. On CUDA: ``csrc/flash_attention_bwd.cu``.
-    Bound: operations, 6·hd flops per visible pair and head."""
+    Replaces ``_bwd_dq_kernel``. On CUDA: ``csrc/flash_attention_bwd.cu``
+    (bf16: TMA + wgmma, deterministic). Bound: operations, 6·hd flops per
+    visible pair and head."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
@@ -218,8 +225,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of :func:`flash_attention_fwd` from the saved LSE and δ.
 
-    Replaces ``_bwd_dkv_kernel``. On CUDA: ``csrc/flash_attention_bwd.cu``.
-    Bound: operations, 8·hd flops per visible pair and head."""
+    Replaces ``_bwd_dkv_kernel``. On CUDA: ``csrc/flash_attention_bwd.cu``
+    (bf16: TMA + wgmma, deterministic). Bound: operations, 8·hd flops per
+    visible pair and head."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,

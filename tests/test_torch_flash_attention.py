@@ -117,3 +117,147 @@ def test_rejects_heads_that_do_not_divide():
     k = torch.zeros(1, 4, 4, 64)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         port_fa.flash_attention(q, k, k)
+
+
+# --------------------------------------------------------------------- #
+# The bf16 kernels' tile walk (csrc/flash_attention_bwd.cu), emulated
+# --------------------------------------------------------------------- #
+OWN, WALK = 128, 64          # rows a CTA owns / of a walked tile (wg::)
+
+
+def _emulate_bwd(q, k, v, do, lse, delta, causal, scale, rounding):
+    """dQ, dK, dV as the bf16 kernels walk them: CTAs of ``OWN`` rows, two
+    warpgroups of 64, walked tiles of ``WALK`` rows; rows past S read as
+    zeros (TMA's fill), the dK/dV stage's lse/delta rows come from the flat
+    ``[B*H*S]`` vectors (the next head's rows past S, zeros at the end);
+    float32 sums tile after tile in the kernels' order; with ``rounding``,
+    P and dS rounded to bf16 per tile before the second products, and each
+    output once. Each skipped (warpgroup, tile) pair is checked to be fully
+    masked, and each tile left unmasked to need no mask."""
+    B, S, H, hd = q.shape
+    rnd = (lambda x: x.bfloat16().float()) if rounding else (lambda x: x)
+    n_own = -(-S // OWN)
+    nw = -(-S // WALK)
+    rows = n_own * OWN + WALK
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros(rows - S, hd)])
+
+    flat_lse = torch.cat([lse.reshape(-1), lse.new_zeros(WALK)])
+    flat_delta = torch.cat([delta.reshape(-1), delta.new_zeros(WALK)])
+    dq = torch.zeros(B, S, H, hd)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    for b in range(B):
+        for h in range(H):
+            qb, kb, vb, dob = (pad(x[b, :, h].float()) for x in (q, k, v, do))
+            bh = b * H + h
+            for tile in range(n_own):
+                t0 = tile * OWN
+                for w0 in (t0, t0 + 64):                 # the two warpgroups
+                    own = torch.arange(w0, w0 + 64)
+                    valid = own < S
+                    # dQ: query rows `own`, key tiles up to the diagonal
+                    n_k = min(nw, (t0 + OWN) // WALK) if causal else nw
+                    lse_r = torch.where(valid, lse[b, h].index_select(
+                        0, own.clamp(max=S - 1)), 0.0)[:, None]
+                    delta_r = torch.where(valid, delta[b, h].index_select(
+                        0, own.clamp(max=S - 1)), 0.0)[:, None]
+                    acc = torch.zeros(64, hd)
+                    for j0 in range(0, n_k * WALK, WALK):
+                        keys = torch.arange(j0, j0 + WALK)
+                        mask = (keys[None] < S) & (
+                            (own[:, None] >= keys[None]) | (not causal))
+                        if w0 >= S or (causal and j0 > w0):
+                            assert not mask[valid].any()
+                            continue
+                        edge = (causal and j0 == w0) or j0 + WALK > S
+                        if not edge:
+                            assert mask[valid].all()
+                        s = qb[w0:w0 + 64] @ kb[j0:j0 + WALK].T
+                        dp = dob[w0:w0 + 64] @ vb[j0:j0 + WALK].T
+                        ok = mask if edge else torch.ones_like(mask)
+                        p = torch.where(ok, torch.exp(s * scale - lse_r), 0.0)
+                        ds = torch.where(ok, p * (dp - delta_r) * scale, 0.0)
+                        acc += rnd(ds) @ kb[j0:j0 + WALK]
+                    dq[b, own[valid], h] = acc[valid]
+                    # dK, dV: keys `own`, query tiles from the first that
+                    # sees them; the tile's lse/delta from the flat rows
+                    first = t0 // WALK if causal else 0
+                    acc_k, acc_v = torch.zeros(64, hd), torch.zeros(64, hd)
+                    for q0 in range(first * WALK, nw * WALK, WALK):
+                        qs = torch.arange(q0, q0 + WALK)
+                        mask = (qs[None] < S) & (
+                            (qs[None] >= own[:, None]) | (not causal))
+                        if w0 >= S or (causal and q0 < w0):
+                            assert not mask[valid].any()
+                            continue
+                        edge = (causal and q0 == w0) or q0 + WALK > S
+                        if not edge:
+                            assert mask[valid].all()
+                        lse_t = flat_lse[bh * S + q0:bh * S + q0 + WALK]
+                        delta_t = flat_delta[bh * S + q0:bh * S + q0 + WALK]
+                        st = kb[w0:w0 + 64] @ qb[q0:q0 + WALK].T
+                        dpt = vb[w0:w0 + 64] @ dob[q0:q0 + WALK].T
+                        ok = mask if edge else torch.ones_like(mask)
+                        p = torch.where(ok, torch.exp(st * scale - lse_t), 0.0)
+                        ds = torch.where(ok, p * (dpt - delta_t) * scale, 0.0)
+                        acc_v += rnd(p) @ dob[q0:q0 + WALK]
+                        acc_k += rnd(ds) @ qb[q0:q0 + WALK]
+                    dk[b, own[valid], h] = acc_k[valid]
+                    dv[b, own[valid], h] = acc_v[valid]
+    return rnd(dq), rnd(dk), rnd(dv)
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 257])
+def test_bf16_tile_walk_emulation(S, causal, hd, rounding):
+    """The bf16 kernels' tile walk on the CPU (``_emulate_bwd``). Without
+    rounding it must match the plain backward within ``TOL`` (float32 sums
+    in another order); with P and dS rounded to bf16 it must stay within
+    the limit ``chip_smoke.py`` holds the card's K2 and K3 to
+    (``FLASH_BF16_TERMS`` of the terms' magnitudes on top of two output
+    ulps, ``BF16_RTOL``) of the JAX ``_bwd`` in interpret mode, on inputs
+    rounded to bf16 values. B 1, H 2."""
+    import chip_smoke
+
+    rng = np.random.default_rng(1000 + S + hd)
+    q, k, v, do = (rng.normal(size=(1, S, 2, hd)).astype(np.float32)
+                   for _ in range(4))
+    if rounding:
+        q, k, v, do = (torch.from_numpy(x).bfloat16().float().numpy()
+                       for x in (q, k, v, do))
+    scale = 1.0 / np.sqrt(hd)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    if not rounding:
+        o, lse = port_fa.flash_attention_fwd(t[0], t[1], t[2], causal, scale)
+        delta = (t[3] * o).sum(-1).transpose(1, 2).contiguous()
+        got = _emulate_bwd(*t, lse, delta, causal, scale, rounding=False)
+        want = (port_fa.flash_attention_bwd_dq_reference(
+            *t, lse, delta, causal, scale),
+            *port_fa.flash_attention_bwd_dkv_reference(
+                *t, lse, delta, causal, scale))
+        for g_, w_ in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), w_.numpy(), **TOL)
+        return
+
+    block = 128 if S <= 128 else 256
+    o_j, lse_j = jax_fa._fwd(_bhsd(q), _bhsd(k), _bhsd(v), scale, causal,
+                             block, block)
+    want = jax_fa._bwd(scale, causal, block, block,
+                       (_bhsd(q), _bhsd(k), _bhsd(v), o_j, lse_j), _bhsd(do))
+    want = [torch.from_numpy(_bshd(x).copy()) for x in want]
+    o_t = torch.from_numpy(_bshd(o_j).copy())
+    lse = torch.from_numpy(np.asarray(lse_j).copy())
+    delta = (t[3] * o_t).sum(-1).transpose(1, 2).contiguous()
+    got = _emulate_bwd(*t, lse, delta, causal, scale, rounding=True)
+    p, ds = port_fa.probs_and_ds(*t, lse, delta, causal, scale)
+    terms = (torch.einsum("bhqk,bkhd->bqhd", ds.abs(), t[1].abs()),
+             torch.einsum("bhqk,bqhd->bkhd", ds.abs(), t[0].abs()),
+             torch.einsum("bhqk,bqhd->bkhd", p.abs(), t[3].abs()))
+    for name, g_, w_, bound in zip(("dQ", "dK", "dV"), got, want, terms):
+        limit = (chip_smoke.BF16_ATOL + chip_smoke.BF16_RTOL * w_.abs()
+                 + chip_smoke.FLASH_BF16_TERMS * bound)
+        worst = float(((g_ - w_).abs() / limit).max())
+        assert worst <= 1.0, f"{name}: {worst:.3f}x chip_smoke's limit"
