@@ -10,9 +10,9 @@ non-zero before the last line is printed:
   2. build the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one ``nvcc``
      per source, in parallel) and print the build time and ptxas report,
      with the registers, spills and static shared memory of the kernels
-     redesigned for Hopper (``REDESIGNED``: K7, K4, K2 and K3); a spill in
-     one of them, or a wgmma serialization warning outside K4's (there
-     since its redesign), fails the run;
+     redesigned for Hopper (``REDESIGNED``: K7, K4, K2, K3, K1 and K11); a
+     spill in one of them, or a wgmma serialization warning outside K4's
+     (there since its redesign), fails the run;
   3. hold each kernel against its plain PyTorch version on the card: at the
      serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16) and on
      float32 edge batches (padding rows, zero-length rows, contexts ending
@@ -38,14 +38,14 @@ non-zero before the last line is printed:
      forward (O, LSE), dQ and dK/dV at B 4, S 2048, H 32 (8 KV heads
      repeated), hd 128, bf16, causal, and on float32 edge batches (S 1,
      100, 257; causal and full; hd 64 and 128; G 1 and 4) and bf16 ones
-     (S 1, 63, 64, 65, 127, 128, 129, 100, 257: the bf16 backward's tile
+     (S 1, 63, 64, 65, 127, 128, 129, 100, 257: the bf16 kernels' tile
      edges; causal and full; hd 64 and 128); the fused RMSNorm+matmul at M
      8192, D 4096, F 4096/1024/14336 in bf16 and at M 100, F 1000 in
-     float32 and bf16; each elementwise against a stated limit; K2, K3
+     float32 and bf16; each elementwise against a stated limit; K1, K2, K3
      and K4 twice bit for bit at the main shapes, and planted faults that
      must read at least 10x their limits (K4: one 64-deep k-stage skipped;
-     K2: one 64-key tile dropped from dQ; K3: one 64-query tile dropped
-     from dK and dV);
+     K1: one 128-key tile dropped from O; K2: one 64-key tile dropped from
+     dQ; K3: one 64-query tile dropped from dK and dV);
   7. the training path: ``initialize`` → ``DeepSpeedEngine.train_batch`` on
      ``TransformerConfig.llama3_8b()`` widths cut to 4 layers with remat
      (random float32 masters from a seeded generator, bench.py's ds_config:
@@ -143,7 +143,9 @@ non-zero before the last line is printed:
      ``wire_residual``) bit for bit on the edge batches' int4 and int8
      wires and on that leaf's int4 wire; K11 ``shard_major_matmul`` at the
      down projection's shapes (x [4096, 14336] @ w [14336, 4096], bf16, 2
-     shards) and float32 edges, K12 ``_gathered_dequant_matmul`` at x
+     shards; the same bits at 1, 2 and 4 shards and across two calls) and
+     on bf16 and float32 edges (M 300, K 72, N 200 in 3 shards; M 64, K
+     4096, N 40 in 2), K12 ``_gathered_dequant_matmul`` at x
      [4096, 14336] against 2 int4 and int8 shards of [7168, 4096] and an
      odd float32 edge, each within an elementwise limit set from the
      roundings' statistics (``matmul_limit``), with planted faults (a
@@ -484,19 +486,22 @@ def ptxas_report(log_text, names):
     return out
 
 
-# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4, K2
-# and K3), by source; their dynamic shared memory comes on top of ptxas's
-# static figure
+# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4, K2,
+# K3, K1 and K11), by source; their dynamic shared memory comes on top of
+# ptxas's static figure
 REDESIGNED = {
     "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
     "rmsnorm_matmul": ("rms_rows_kernel", "rmsnorm_matmul_wgmma_kernel"),
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
                             "flash_bwd_dkv_wgmma_kernel"),
+    "flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
+    "collective_matmul": ("shard_major_matmul_wgmma_kernel",),
 }
 # a redesigned kernel's row in the kernels line, where that is not its
 # source's name
 REDESIGNED_ROWS = {"flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
-                   "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
+                   "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv",
+                   "shard_major_matmul_wgmma_kernel": "shard_major_matmul"}
 
 
 def phase_build(torch):
@@ -1045,6 +1050,42 @@ def check_rmsnorm_matmul_faults(torch, fcm, x, scale, w, eps):
 
 
 FLASH_TILE = 64                    # the bf16 backward's walked tile
+FLASH_FWD_TILE = 128               # the bf16 forward's walked key tile
+
+
+def check_flash_fwd_faults(torch, fa, q, k, v):
+    """K1 twice on the same inputs, bit for bit; and a planted fault from
+    the plain math, read against the limit ``check_flash`` holds O to: O
+    with the key tile [S/2, S/2 + FLASH_FWD_TILE) dropped from every row's
+    softmax (a block that skipped a walked tile), which must read at least
+    10x the limit. → the fault's reading (x the limit)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    a = fa.flash_attention_fwd(q, k, v, True, scale)
+    b = fa.flash_attention_fwd(q, k, v, True, scale)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "flash_attention_fwd: two calls differ")
+    log("check flash_attention_fwd: two calls bit for bit")
+    del a, b
+    ref, lse = fa.flash_attention_fwd_reference(q, k, v, True, scale)
+    S = q.shape[1]
+    keep = fa._causal_mask(S, q.device)
+    s = fa._scores(q, k, scale)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    limit = (BF16_ATOL + BF16_RTOL * ref.float().abs() + FLASH_BF16_TERMS
+             * torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs()))
+    del p
+    t0 = S // 2
+    keep[:, t0:t0 + FLASH_FWD_TILE] = False
+    s = torch.where(keep, s, -1e30)
+    s = torch.softmax(s, dim=-1)
+    fault = torch.einsum("bhqk,bkhd->bqhd", s, v.float()).to(q.dtype)
+    del s
+    worst = planted_fault(torch, f"O with the key tile [{t0}, "
+                          f"{t0 + FLASH_FWD_TILE}) dropped", fault, ref,
+                          limit)
+    check(worst >= 10.0, f"K1's limit reads a dropped tile at only "
+                         f"{worst:.2f}x, not >= 10x")
+    return worst
 
 
 def check_flash_bwd_faults(torch, fa, q, k, v, do):
@@ -1119,6 +1160,8 @@ def phase_train_kernel_checks(torch):
                                m["hd"], torch.bfloat16)
     errs = check_flash(torch, fa, "bf16 main shapes causal", q, k, v, do,
                        True, FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL)
+    errs["flash_attention_fwd_fault_x"] = check_flash_fwd_faults(
+        torch, fa, q, k, v)
     (errs["flash_attention_bwd_dq_fault_x"],
      errs["flash_attention_bwd_dkv_fault_x"]) = check_flash_bwd_faults(
         torch, fa, q, k, v, do)
@@ -1134,8 +1177,9 @@ def phase_train_kernel_checks(torch):
                                 f"hd={hd} G={G}", q, k, v, do, causal,
                                 F32_TERMS, F32_RTOL, 1e-5)
     # the same tails on the tensor-core path, in bf16, and the lengths
-    # around the bf16 backward's tiles (128 owned rows, 64-row walked
-    # tiles): 1, 63-65, 127-129
+    # around the bf16 kernels' tiles (128 owned rows; walked tiles of 64
+    # rows in the backward, of 128 keys in the forward): 1, 63-65, 127-129,
+    # 257
     for S in (1, 63, 64, 65, 127, 128, 129, 100, 257):
         for causal in (True, False):
             for hd in (64, 128):
@@ -1366,7 +1410,7 @@ _KERNEL_GROUPS = (            # kernel-name substrings → what they are
                            "rmsnorm_matmul_wgmma_kernel", "rms_rows_kernel")),
     ("K5/K13-K15 fused optimizers", ("adam_kernel", "lamb_kernel",
                                      "lion_kernel", "adagrad_kernel")),
-    ("K1 flash forward", ("flash_fwd_kernel",)),
+    ("K1 flash forward", ("flash_fwd_wgmma_kernel",)),
     ("K2 flash dQ", ("flash_bwd_dq_wgmma_kernel",)),
     ("K3 flash dK/dV", ("flash_bwd_dkv_wgmma_kernel",)),
     ("cuBLAS GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
@@ -3515,6 +3559,12 @@ def world_kernel_checks(torch):
     tag = "K11 shard_major_matmul bf16 [4096, 14336] @ [14336, 4096]"
     errs["shard_major_matmul"] = _compare_limit(
         torch, f"{tag} 2 shards", got, ref, limit, MATMUL_LIMIT)
+    # each element's sum runs in one k order wherever its tile lies
+    for n in (1, 4, WORLD_SIZE):
+        check(torch.equal(got, fcm.shard_major_matmul(x, wm, n)),
+              f"K11: {n} shards give other bits than {WORLD_SIZE}")
+    log("check K11: the same bits at 1, 2 and 4 shards and across two "
+        "calls")
     faults = {"K11 with a 32-wide K tile dropped": dropped_tile(
         torch, lambda xd: fcm.matmul_reference(xd, wm), x),
               "K11 with its sums carried in bfloat16": bf16_sums(
@@ -3522,15 +3572,19 @@ def world_kernel_checks(torch):
     planted = {name: planted_fault(torch, name, f, ref, limit)
                for name, f in faults.items()}
     del got, ref, limit, faults
+    # the edges: K and N off the 64-deep k-stage and the 256-wide tile
+    # (zeros from TMA), shards ending inside a 128-row tile
     for (m, k, nn, shards) in ((300, 72, 200, 3), (64, 4096, 40, 2)):
-        xe = torch.randn(m, k, generator=gen, device=DEVICE)
-        we = torch.randn(k, nn, generator=gen, device=DEVICE)
-        got = fcm.shard_major_matmul(xe, we, shards)
-        ref = fcm.matmul_reference(xe, we)
-        errs["shard_major_matmul"] = max(errs["shard_major_matmul"],
-                                         _compare_limit(
-            torch, f"K11 float32 [{m}, {k}] @ [{k}, {nn}] {shards} shards",
-            got, ref, matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
+        for dtype in (bf16, f32):
+            xe = torch.randn(m, k, generator=gen, device=DEVICE).to(dtype)
+            we = torch.randn(k, nn, generator=gen, device=DEVICE).to(dtype)
+            got = fcm.shard_major_matmul(xe, we, shards)
+            ref = fcm.matmul_reference(xe, we)
+            errs["shard_major_matmul"] = max(
+                errs["shard_major_matmul"], _compare_limit(
+                    torch, f"K11 {str(dtype)[6:]} [{m}, {k}] @ [{k}, {nn}] "
+                    f"{shards} shards", got, ref,
+                    matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
     # K12: x against the two shards of the same weight on the int4 and
     # int8 wires (the prologue's operands at world 2), and an odd edge
     kk = K // WORLD_SIZE
@@ -3718,12 +3772,6 @@ def main():
         others = phase_other_fused(torch, fused_adam["losses"][0])
         checkpoint = phase_checkpoint(torch)
         kernels += phase_train_timing(torch, train_launches, train_errs)
-        for src, names in REDESIGNED.items():
-            for n in names:
-                row = next(r for r in kernels
-                           if r["name"] == REDESIGNED_ROWS.get(n, src))
-                if n in ptxas:
-                    row.setdefault("ptxas", {})[n] = ptxas[n]
         opt_launches = {"fused_adam": fa_launches["fused_adam"],
                         **{n: o["launches"] for n, o in others.items()}}
         kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)
@@ -3739,6 +3787,12 @@ def main():
         kernels += world_kernel_entries(world_rows, world, world_errs)
         check(len(kernels) == 23, f"{len(kernels)} kernels timed, not 23 "
                                   f"(22 TPU kernels and LoCo's residual)")
+        for src, names in REDESIGNED.items():
+            for n in names:
+                row = next(r for r in kernels
+                           if r["name"] == REDESIGNED_ROWS.get(n, src))
+                if n in ptxas:
+                    row.setdefault("ptxas", {})[n] = ptxas[n]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -24,22 +24,38 @@
 //        (__fmul_rn) and the sums are FMAs on the CUDA cores, never TF32
 //        or bfloat16, as the reference's float32 dot.
 //
-// Design. A block of 8 warps owns a 128 x 128 tile of the output and walks
-// K in steps of 32; each warp accumulates a 64 x 32 sub-tile with
-// tile_mma.cuh's warp products (mma.sync m16n8k16, bfloat16 in and float32
-// sums, for K11 in bfloat16; exact float32 FMAs otherwise). K11 stages x
-// and w with 16-byte loads, the next step's loads issued into registers
-// before the current step's products; rows past the shard's end and
-// columns past N are zero-filled and never stored. K12 dequantizes each
-// weight element while staging it into shared memory, so the float32
-// weight never exists in device memory, and keeps two accumulators a
-// thread (the shard's product and the running sum).
-//
 // Bound on this card: operations. K11 2*M*K*N at 989 TFLOP/s dense
 // bfloat16 (67 TFLOP/s float32); K12 2*M*(n*k)*N float32 at 67 TFLOP/s.
-// Left on the table: wgmma with TMA-fed multi-stage pipelines, ldmatrix
-// fragment loads, a persistent tile scheduler; for K12 the dequantize of
-// a weight tile is repeated by each row tile of the output.
+//
+// K11 in bfloat16, the type of the fused-gemm edges: a TMA + wgmma kernel.
+// One block of two consumer warpgroups and a producer warp owns a 128 x 256
+// tile of y; the tiles are walked shard-major and, inside each shard, in
+// groups of kGroupM row tiles sharing each column sweep (the x and w tiles
+// in flight stay in the 50 MB L2). The producer's thread fills a ring of
+// kStages shared-memory stages by TMA, each an x tile [128 x 64] and a w
+// tile [64 x 256] (four 64-column boxes), 128-byte swizzled, completion
+// counted on an mbarrier; columns past K and N arrive as zeros, and w boxes
+// wholly past N are not loaded (their columns are never stored). Each
+// consumer warpgroup owns 64 rows and issues wgmma m64n256k16 with both
+// operands in shared memory (x K-major, w N-major: imm-trans-b) per 16-deep
+// k slice; the sums stay float32 in the accumulators, each element's k
+// order fixed (no split-K, no atomics), so an element's bits do not depend
+// on its tile's position or on n_shards. The epilogue rounds once to
+// bfloat16 and stores rows below the shard's end only: rows of the next
+// shard that a tile's TMA box reads are computed and dropped.
+// float32 (the card's edge checks) keeps the exact CUDA-core path, wgmma
+// having no full-float32 mode: a block of 8 warps owns a 128 x 128 tile and
+// walks K in steps of 32, staging x and w with 16-byte loads (the next
+// step's issued into registers before the current step's products) into
+// padded shared memory, each warp accumulating a 64 x 32 sub-tile with
+// float32 FMAs in the accumulator layout of tile_mma.cuh. K12 shares that
+// design: it dequantizes each weight element while staging it into shared
+// memory, so the float32 weight never exists in device memory, and keeps
+// two accumulators a thread (the shard's product and the running sum).
+// Left on the table: a persistent tile scheduler and an epilogue through
+// shared memory (K11); for K12 the dequantize of a weight tile is repeated
+// by each row tile of the output.
+#include "hopper_async.cuh"
 #include "tile_mma.cuh"
 
 namespace dstorch {
@@ -52,32 +68,177 @@ constexpr int kThreads = 256;
 constexpr int kGroupM = 8;
 
 // The (row tile, column tile) of linear tile index t of a tiles_m x
-// tiles_n grid, in groups of kGroupM row tiles sharing each column sweep
+// tiles_n grid, in groups of `group` row tiles sharing each column sweep
 // (the tiles of x and w in flight stay in the 50 MB L2).
 __device__ __forceinline__ void grouped_tile(int t, int tiles_m, int tiles_n,
-                                             int& tm, int& tn) {
-  const int per_group = kGroupM * tiles_n;
-  const int first_m = (t / per_group) * kGroupM;
-  const int gsize = min(tiles_m - first_m, kGroupM);
+                                             int group, int& tm, int& tn) {
+  const int per_group = group * tiles_n;
+  const int first_m = (t / per_group) * group;
+  const int gsize = min(tiles_m - first_m, group);
   tm = first_m + (t % per_group) % gsize;
   tn = (t % per_group) / gsize;
 }
 
 // ------------------------------------------------------------------------
-// K11
+// K11, bfloat16: TMA + wgmma
 // ------------------------------------------------------------------------
-template <typename T>
+namespace wg {
+constexpr int kBM = 128, kBN = 256, kBK = 64;
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;                   // warpgroups, 64 rows each
+constexpr int kThreads = kConsumers * 128 + 32; // + the producer warp
+constexpr int kGroupM = 16;
+constexpr int kABytes = kBM * kBK * 2;          // 16 KB
+constexpr int kBBox = 64;                       // w columns a TMA box
+constexpr int kBBoxBytes = kBK * kBBox * 2;     // 8 KB
+constexpr int kBBytes = kBN / kBBox * kBBoxBytes;
+constexpr int kStageBytes = kABytes + kBBytes;  // 48 KB, 1024-aligned
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+shard_major_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                                const __grid_constant__ CUtensorMap tm_w,
+                                __nv_bfloat16* __restrict__ y, int M, int K,
+                                int N, int n_shards) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + wg::kStages * wg::kStageBytes);
+  uint64_t* empty = full + wg::kStages;
+
+  // shard-major: all tiles of shard s before any of shard s + 1
+  const int rows = M / n_shards;
+  const int tiles_m = (rows + wg::kBM - 1) / wg::kBM;
+  const int tiles_n = (N + wg::kBN - 1) / wg::kBN;
+  const int per_shard = tiles_m * tiles_n;
+  const int shard = blockIdx.x / per_shard;
+  int tm, tn;
+  grouped_tile(blockIdx.x % per_shard, tiles_m, tiles_n, wg::kGroupM, tm,
+               tn);
+  const int m0 = shard * rows + tm * wg::kBM;
+  const int m_end = min(shard * rows + rows, m0 + wg::kBM);  // exclusive
+  const int n0 = tn * wg::kBN;
+  const int nk = (K + wg::kBK - 1) / wg::kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wg::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], wg::kConsumers * 4);  // an arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == wg::kConsumers * 4) {
+    // producer: one thread keeps the ring full; w boxes wholly past N are
+    // left out (their accumulator columns are never stored)
+    if (lane == 0) {
+      const int boxes = min(wg::kBN, N - n0 + wg::kBBox - 1) / wg::kBBox;
+      const uint32_t tx = wg::kABytes + boxes * wg::kBBoxBytes;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % wg::kStages;
+        mbar_wait(&empty[st], ((kt / wg::kStages) & 1) ^ 1);
+        unsigned char* base = smem + st * wg::kStageBytes;
+        const int k0 = kt * wg::kBK;
+        mbar_arrive_expect_tx(&full[st], tx);
+        tma_load_2d(base, &tm_x, &full[st], k0, m0);
+        for (int b = 0; b < boxes; ++b)
+          tma_load_2d(base + wg::kABytes + b * wg::kBBoxBytes, &tm_w,
+                      &full[st], n0 + b * wg::kBBox, k0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cg owns rows [64 cg, 64 cg + 64) of the tile
+  const int cg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = m0 + cg * 64 + wq * 16 + g, row_hi = row_lo + 8;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % wg::kStages;
+    mbar_wait(&full[st], (kt / wg::kStages) & 1);
+    __syncwarp();  // wgmma needs the warp converged
+    const uint32_t a_base =
+        smem_addr(smem + st * wg::kStageBytes) + cg * 64 * 128;
+    const uint32_t b_base = smem_addr(smem + st * wg::kStageBytes) +
+                            wg::kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < wg::kBK / 16; ++kk) {
+      // x: rows of 128 bytes, a 16-deep slice 32 bytes in; w: 64-column
+      // boxes kBBoxBytes apart (LBO), 8-row k groups 1024 bytes apart
+      // (SBO), a 16-deep slice 16 rows of 128 bytes in
+      wgmma_m64n256k16_ss(
+          acc, wgmma_desc_kmajor(a_base + kk * 32),
+          wgmma_desc_sw128(b_base + kk * 16 * 128, wg::kBBoxBytes, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: round once to bfloat16; only this shard's rows, columns < N
+#pragma unroll
+  for (int j = 0; j < wg::kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col < N) {
+      if (row_lo < m_end)
+        store_pair(y + (size_t)row_lo * N + col, acc[4 * j], acc[4 * j + 1]);
+      if (row_hi < m_end)
+        store_pair(y + (size_t)row_hi * N + col, acc[4 * j + 2],
+                   acc[4 * j + 3]);
+    }
+  }
+}
+
+cudaError_t launch_shard_major_bf16(const void* x, const void* w, void* y,
+                                    int M, int K, int N, int n_shards,
+                                    cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  // encoded every call: the caching allocator reuses addresses
+  CUtensorMap tm_x, tm_w;
+  if (!encode_bf16(enc, &tm_x, x, M, K, wg::kBM, wg::kBK,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bf16(enc, &tm_w, w, K, N, wg::kBK, wg::kBBox,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      shard_major_matmul_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int rows = M / n_shards;
+  const long long blocks = (long long)n_shards *
+                           ((rows + wg::kBM - 1) / wg::kBM) *
+                           ((N + wg::kBN - 1) / wg::kBN);
+  shard_major_matmul_wgmma_kernel<<<(unsigned)blocks, wg::kThreads,
+                                    wg::kSmemBytes, stream>>>(
+      tm_x, tm_w, static_cast<__nv_bfloat16*>(y), M, K, N, n_shards);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------
+// K11, float32: the exact CUDA-core path
+// ------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-shard_major_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          T* __restrict__ y, int M, int K, int N,
-                          int n_shards) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int LDA = kBK + kPad<T>;
-  constexpr int LDB = kBN + kPad<T>;
+shard_major_matmul_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w, float* __restrict__ y,
+                          int M, int K, int N, int n_shards) {
+  constexpr int VEC = 4;
+  constexpr int LDA = kBK + kPad<float>;
+  constexpr int LDB = kBN + kPad<float>;
   constexpr int XV = kBM * kBK / VEC / kThreads;   // x vectors per thread
   constexpr int WV = kBK * kBN / VEC / kThreads;   // w vectors per thread
-  __shared__ __align__(16) T As[kBM * LDA];
-  __shared__ __align__(16) T Bs[kBK * LDB];
+  __shared__ __align__(16) float As[kBM * LDA];
+  __shared__ __align__(16) float Bs[kBK * LDB];
 
   // shard-major: all tiles of shard s before any of shard s + 1
   const int rows = M / n_shards;
@@ -86,7 +247,7 @@ shard_major_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int per_shard = tiles_m * tiles_n;
   const int shard = blockIdx.x / per_shard;
   int tm, tn;
-  grouped_tile(blockIdx.x % per_shard, tiles_m, tiles_n, tm, tn);
+  grouped_tile(blockIdx.x % per_shard, tiles_m, tiles_n, kGroupM, tm, tn);
   const int m0 = shard * rows + tm * kBM;
   const int m_end = min(shard * rows + rows, m0 + kBM);  // exclusive
   const int n0 = tn * kBN;
@@ -164,16 +325,15 @@ shard_major_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-cudaError_t launch_shard_major(const void* x, const void* w, void* y, int M,
-                               int K, int N, int n_shards,
-                               cudaStream_t stream) {
+cudaError_t launch_shard_major_f32(const void* x, const void* w, void* y,
+                                   int M, int K, int N, int n_shards,
+                                   cudaStream_t stream) {
   const int rows = M / n_shards;
   const long long blocks = (long long)n_shards * ((rows + kBM - 1) / kBM) *
                            ((N + kBN - 1) / kBN);
-  shard_major_matmul_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      M, K, N, n_shards);
+  shard_major_matmul_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), M, K, N, n_shards);
   return cudaGetLastError();
 }
 
@@ -207,7 +367,7 @@ gathered_dequant_matmul_kernel(const float* __restrict__ x,
   const int tiles_m = (M + kBM - 1) / kBM;
   const int tiles_n = (N + kBN - 1) / kBN;
   int tm, tn;
-  grouped_tile(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  grouped_tile(blockIdx.x, tiles_m, tiles_n, kGroupM, tm, tn);
   const int m0 = tm * kBM, n0 = tn * kBN;
   const int W = BITS == 8 ? gs : gs / 2;
   const int half = gs / 2;
@@ -312,9 +472,9 @@ extern "C" int shard_major_matmul_launch(const void* x, const void* w,
   if (K <= 0 || K % 8 || N % 8 || n_shards < 1 || M % n_shards)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
-    return launch_shard_major<__nv_bfloat16>(x, w, y, M, K, N, n_shards, st);
+    return launch_shard_major_bf16(x, w, y, M, K, N, n_shards, st);
   if (dtype == kF32)
-    return launch_shard_major<float>(x, w, y, M, K, N, n_shards, st);
+    return launch_shard_major_f32(x, w, y, M, K, N, n_shards, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,7 +23,8 @@
 // fixed order).
 //
 // bfloat16, the training path's type: TMA + wgmma kernels, one template
-// for hd 64 and 128. A CTA owns 128 rows of one (batch, head), two
+// for hd 64 and 128 (flash_wgmma.cuh holds what they share with the
+// forward). A CTA owns 128 rows of one (batch, head), two
 // warpgroups of 64, and walks the other side in tiles of 64 rows through a
 // ring of kStages shared-memory stages, all loaded by TMA from the
 // [B, S, H*hd] layout as it is (3-D tensor maps, 64-column boxes, 128-byte
@@ -68,10 +69,83 @@
 // layout of tile_mma.cuh.
 #include <type_traits>
 
-#include "hopper_async.cuh"
-#include "tile_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace dstorch {
+
+// ---- bfloat16: TMA + wgmma, two warpgroups in turns (flash_wgmma.cuh) ---
+namespace wg {
+namespace {
+constexpr int kWalk = 64;                 // rows of a walked tile
+constexpr int kStages = 3;
+// dQ: + a producer warpgroup; 168 registers a thread at entry (65536 /
+// 384, in steps of 8), the producer gives 144 back, the consumers take 72
+constexpr int kThreadsDq = (kGroups + 1) * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+// dK/dV: its consumers need more than 240 (dK and dV accumulate 128
+// floats a thread at hd 128), so no producer: 255 registers a thread,
+// and warp 0 fills the ring
+constexpr int kThreadsDkv = kGroups * 128;
+constexpr int kWalkBox = kWalk * 128;     // bytes of a [64 x 64] box
+
+template <int HD, bool STATS>
+struct Layout {
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kOwnBox = kOwn * 128;           // a [128 x 64] box
+  static constexpr int kOwnBytes = kBoxes * kOwnBox;   // one owned tensor
+  static constexpr int kWalkBytes = kBoxes * kWalkBox; // one walked tensor
+  // STATS: the walked rows' lse and delta (dK/dV), after the tiles
+  static constexpr int kStats = STATS ? 2 * kWalk * 4 : 0;
+  static constexpr int kTx = 2 * kWalkBytes;           // a stage's TMA bytes
+  static constexpr int kStageBytes = (kTx + kStats + 1023) / 1024 * 1024;
+  static constexpr int kBars = 1 + 2 * kStages;        // owned, full, empty
+  static constexpr int kSmem =
+      2 * kOwnBytes + kStages * kStageBytes + 8 * kBars + 1024;
+};
+
+// Issues S = A0.B0^T and dP = A1.B1^T for one warpgroup, both [64 x 64],
+// as one wgmma group: A0, A1 its 64 owned rows (boxes `a_box` bytes
+// apart), B0, B1 the walked tile's 64 rows; all K-major over hd.
+template <int HD>
+__device__ __forceinline__ void score_products(float (&s)[32],
+                                               float (&dp)[32], uint32_t a0,
+                                               uint32_t a1, uint32_t b0,
+                                               uint32_t b1, uint32_t a_box) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(s, wgmma_desc_kmajor(a0 + ao),
+                       wgmma_desc_kmajor(b0 + bo), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(dp, wgmma_desc_kmajor(a1 + ao),
+                       wgmma_desc_kmajor(b1 + bo), kk);
+  }
+  wgmma_commit();
+}
+
+// `fills` arrivals complete a stage: the filling thread's expect-tx, and
+// (dK/dV) one a lane of warp 0 once its cp.async copies of row statistics
+// landed
+__device__ __forceinline__ void init_bars(uint64_t* bars, int fills) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);                          // the owned rows
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&bars[1 + i], fills);                // stage i full
+      mbar_init(&bars[1 + kStages + i], kGroups * 4);  // i consumed
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+}  // namespace
+}  // namespace wg
+
 namespace {
 
 // ---- float32: the exact CUDA-core kernels -------------------------------
@@ -323,164 +397,6 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- bfloat16: TMA + wgmma, two warpgroups in turns ---------------------
-namespace wg {
-constexpr int kOwn = 128;                 // rows a CTA owns
-constexpr int kWalk = 64;                 // rows of a walked tile
-constexpr int kStages = 3;
-constexpr int kGroups = 2;                // consumer warpgroups, 64 rows each
-// dQ: + a producer warpgroup; 168 registers a thread at entry (65536 /
-// 384, in steps of 8), the producer gives 144 back, the consumers take 72
-constexpr int kThreadsDq = (kGroups + 1) * 128;
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-// dK/dV: its consumers need more than 240 (dK and dV accumulate 128
-// floats a thread at hd 128), so no producer: 255 registers a thread,
-// and warp 0 fills the ring
-constexpr int kThreadsDkv = kGroups * 128;
-constexpr int kHeadGroup = 16;            // (batch, head) pairs a raster group
-constexpr int kBoxCols = 64;              // a TMA box row: 128 bytes
-constexpr int kWalkBox = kWalk * 128;     // bytes of a [64 x 64] box
-
-template <int HD, bool STATS>
-struct Layout {
-  static constexpr int kBoxes = HD / kBoxCols;
-  static constexpr int kOwnBox = kOwn * 128;           // a [128 x 64] box
-  static constexpr int kOwnBytes = kBoxes * kOwnBox;   // one owned tensor
-  static constexpr int kWalkBytes = kBoxes * kWalkBox; // one walked tensor
-  // STATS: the walked rows' lse and delta (dK/dV), after the tiles
-  static constexpr int kStats = STATS ? 2 * kWalk * 4 : 0;
-  static constexpr int kTx = 2 * kWalkBytes;           // a stage's TMA bytes
-  static constexpr int kStageBytes = (kTx + kStats + 1023) / 1024 * 1024;
-  static constexpr int kBars = 1 + 2 * kStages;        // owned, full, empty
-  static constexpr int kSmem =
-      2 * kOwnBytes + kStages * kStageBytes + 8 * kBars + 1024;
-};
-
-// The CTA's (rank, batch*H + head): (batch, head) pairs in raster groups
-// of kHeadGroup, each group's CTAs in rank order across its pairs.
-__device__ __forceinline__ void raster(int BH, int ranks, int& rank,
-                                       int& bh) {
-  const int per_group = kHeadGroup * ranks;
-  const int first = (blockIdx.x / per_group) * kHeadGroup;
-  const int gsize = min(BH - first, kHeadGroup);
-  const int r = blockIdx.x % per_group;
-  rank = r / gsize;
-  bh = first + r % gsize;
-}
-
-// The warpgroups' turns at the tensor cores: warpgroup g issues a batch of
-// wgmma after wait() and lets the other go with pass(), so one computes P
-// and dS while the other's products run (named barriers 1 and 2, one per
-// warpgroup; warpgroup 1 passes first, once, before its first turn).
-struct Turns {
-  int g;
-  __device__ __forceinline__ void wait() const {
-    named_bar_sync(1 + g, kGroups * 128);
-  }
-  __device__ __forceinline__ void pass() const {
-    named_bar_arrive(2 - g, kGroups * 128);
-  }
-};
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit: relative error ~2^-22, subnormal
-// results flushed to 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
-// Issues S = A0.B0^T and dP = A1.B1^T for one warpgroup, both [64 x 64],
-// as one wgmma group: A0, A1 its 64 owned rows (boxes `a_box` bytes
-// apart), B0, B1 the walked tile's 64 rows; all K-major over hd.
-template <int HD>
-__device__ __forceinline__ void score_products(float (&s)[32],
-                                               float (&dp)[32], uint32_t a0,
-                                               uint32_t a1, uint32_t b0,
-                                               uint32_t b1, uint32_t a_box) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
-    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
-    wgmma_m64n64k16_ss(s, wgmma_desc_kmajor(a0 + ao),
-                       wgmma_desc_kmajor(b0 + bo), kk);
-  }
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
-    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
-    wgmma_m64n64k16_ss(dp, wgmma_desc_kmajor(a1 + ao),
-                       wgmma_desc_kmajor(b1 + bo), kk);
-  }
-  wgmma_commit();
-}
-
-// Issues acc += A.B over the walked tile's 64 rows: A a [64 x 64] tile as
-// bf16 fragments (k16 slice j in a[j]), B the walked tile [64 x HD] read
-// with HD contiguous (64-column boxes kWalkBox apart, 8-row groups 1024
-// apart).
-template <int HD>
-__device__ __forceinline__ void walk_product(float (&acc)[HD / 2],
-                                             const uint32_t (&a)[4][4],
-                                             uint32_t b) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint64_t desc = wgmma_desc_sw128(b + j * 16 * 128, kWalkBox, 1024);
-    if constexpr (HD == 128) {
-      wgmma_m64n128k16_rs(acc, a[j], desc);
-    } else {
-      wgmma_m64n64k16_rs(acc, a[j], desc);
-    }
-  }
-}
-
-// Rows row_lo and row_lo + 8 of a warp's [16 x HD] accumulator slice,
-// rounded once to bfloat16; rows at or past S are not written.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[HD / 2],
-                                           int row_lo, int S, int H, int b,
-                                           int h) {
-  const int t = threadIdx.x % 4;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    if (row >= S) continue;
-    __nv_bfloat16* o = out + (((size_t)b * S + row) * H + h) * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      store_pair(o + 8 * j + 2 * t, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    }
-  }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// `fills` arrivals complete a stage: the filling thread's expect-tx, and
-// (dK/dV) one a lane of warp 0 once its cp.async copies of row statistics
-// landed
-__device__ __forceinline__ void init_bars(uint64_t* bars, int fills) {
-  if (threadIdx.x == 0) {
-    mbar_init(&bars[0], 1);                          // the owned rows
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(&bars[1 + i], fills);                // stage i full
-      mbar_init(&bars[1 + kStages + i], kGroups * 4);  // i consumed
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-}
-}  // namespace wg
 
 // dQ: a CTA owns 128 query rows and walks 64-key tiles.
 template <int HD>
@@ -615,7 +531,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       turns.wait();
       wgmma_fence();
-      wg::walk_product<HD>(acc, da, k_s);         // dQ += dS.K
+      wg::walk_product<HD, wg::kWalk>(acc, da, k_s);         // dQ += dS.K
       wgmma_commit();
       if (!last_turn) turns.pass();
       wgmma_wait<0>();
@@ -780,8 +696,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       turns.wait();
       wgmma_fence();
-      wg::walk_product<HD>(acc_v, pa, do_s);      // dV += P^T.dO
-      wg::walk_product<HD>(acc_k, da, q_s);       // dK += dS^T.Q
+      wg::walk_product<HD, wg::kWalk>(acc_v, pa, do_s);      // dV += P^T.dO
+      wg::walk_product<HD, wg::kWalk>(acc_k, da, q_s);       // dK += dS^T.Q
       wgmma_commit();
       if (!last_turn) turns.pass();
       wgmma_wait<0>();
@@ -798,13 +714,6 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   wg::store_rows<HD>(dk, acc_k, key_lo, S, H, b, h);
   wg::store_rows<HD>(dv, acc_v, key_lo, S, H, b, h);
-}
-
-// Tensor maps of a [B, S, H*hd] bfloat16 tensor with boxes of `rows` x 64.
-bool encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-                 int S, int H, int hd, int rows) {
-  return encode_bf16_3d(enc, map, ptr, B, S, (uint64_t)H * hd, rows,
-                        wg::kBoxCols, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int HD>
@@ -858,11 +767,6 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       B * H, S, H, scale, causal);
   return cudaGetLastError();
-}
-
-// The flat [B*H*S] row offsets and the grid are int: refuse what overflows.
-bool fits(int B, int S, int H) {
-  return (long long)B * H * S < (1ll << 31);
 }
 
 }  // namespace

@@ -112,7 +112,9 @@ def shard_major_matmul(x: torch.Tensor, w: torch.Tensor, n_shards: int
     its output tiles walked shard-major: shard s's rows
     ``[s·M/n, (s+1)·M/n)`` complete before any tile of shard s+1 starts,
     so the trailing reduce-scatter can take each shard as it completes.
-    ``M`` must divide by ``n_shards``. The kernel's tiles are 128 x 128.
+    ``M`` must divide by ``n_shards``. In bf16 the kernel is TMA + wgmma
+    on 128 x 256 tiles (float32: CUDA cores, 128 x 128); K and N must be
+    multiples of 8 and both operands 16-byte aligned (TMA's rules).
 
     Replaces ``_matmul_kernel`` (K11). Bound on the H100: operations,
     2·M·K·N at 989 TFLOP/s in bf16 (67 TFLOP/s in float32)."""
@@ -135,6 +137,8 @@ def shard_major_matmul(x: torch.Tensor, w: torch.Tensor, n_shards: int
                          f"got {K}, {N}")
     x = x.to(dtype).contiguous()
     w = w.to(dtype).contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: x and w must be 16-byte aligned")
     y = torch.empty(M, N, dtype=dtype, device=x.device)
     err = kernel_function(_LIB, "shard_major_matmul_launch", _MATMUL_ARGS)(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N, n_shards,

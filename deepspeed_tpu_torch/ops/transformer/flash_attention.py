@@ -27,9 +27,9 @@ which the CPU tests hold against the JAX kernels in interpret mode. The
 backward's plain versions are the recompute math of ``_bwd`` (P from the
 LSE), not autograd of the plain forward. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``. The CUDA kernels choose their own
-tiles (the forward and the float32 backward 64 x 64; the bf16 backward
-owns 128 rows a block and walks tiles of 64); the model's
-``flash_block_q``/``flash_block_k`` do not steer them.
+tiles (bf16, TMA + wgmma: a block owns 128 rows, two warpgroups of 64,
+and walks tiles of 64 on the other side; float32: 64 x 64 on the CUDA
+cores); the model's ``flash_block_q``/``flash_block_k`` do not steer them.
 """
 from __future__ import annotations
 
@@ -163,9 +163,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over ``[B, S, H, hd]`` q, k, v (KV heads already repeated
     to H) → (O ``[B, S, H, hd]``, LSE ``[B, H, S]`` float32).
 
-    Replaces ``_fwd_kernel``. On CUDA: ``csrc/flash_attention_fwd.cu``.
-    Bound on the H100: operations, 4·hd flops per visible (query, key)
-    pair and head at 989 TFLOP/s in bf16."""
+    Replaces ``_fwd_kernel``. On CUDA: ``csrc/flash_attention_fwd.cu``
+    (bf16: TMA + wgmma, a block of 128 query rows walking 64-key tiles,
+    the softmax in base 2, deterministic). Bound on the H100: operations,
+    4·hd flops per visible (query, key) pair and head at 989 TFLOP/s in
+    bf16."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, scale)

@@ -1,0 +1,398 @@
+"""Variants of the port's CUDA kernels side by side on the card.
+
+    python -m deepspeed_tpu_torch.utils.kernel_probe [probe ...]
+
+A variant is a source of ``csrc/`` with textual substitutions (a tile
+width, a ring depth, a wait depth), compiled with ``NVCC_FLAGS`` into
+``build/probe/`` beside the tree's libraries; the tree's own source is the
+first variant of each probe. A probe swaps each variant in for the tree's
+library (the wrappers look their launcher up on every call), holds it
+against the plain version with ``chip_smoke.py``'s limits on edge batches
+and at the main path's shapes, and times the variants in turns (in order,
+in reverse, in order again) with ``chip_smoke.cuda_ms``, beside the card's
+name and power limit and ptxas's report. It needs a card and ``nvcc``, and runs from a checkout
+(it imports ``chip_smoke``). Probes: ``flash_fwd`` (K1 at B 4, S 2048, H
+32, hd 128, causal; K2 and K3 timed beside it), ``shard_major`` (K11 at x
+[4096, 14336] @ w [14336, 4096], 2 shards).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import subprocess
+import sys
+import time
+from typing import Dict, List, Tuple, Union
+
+import torch
+
+from ..ops.op_builder import builder as bld
+
+# K1's walk, from the tree's first consumer statement to its epilogue, and
+# two other orders of a warpgroup's turns (turn jt issues S = Q.K^T of tile
+# jt with O += P.V of tile jt - 1): SHIFTED as FlashAttention-3 does (two
+# wgmma groups, tile jt's softmax between the waits for S and for P.V),
+# MERGED as one group, the softmax after both
+_FWD_WALK = ("  mbar_wait(&bars[0], 0);\n  if (cg == 1) turns.pass();\n\n"
+             "  // The walk:", "  // epilogue: the 4 lanes")
+_FWD_SHIFTED = """\
+  // Turn jt of a warpgroup (1 <= jt < nv): it issues S = Q.K^T of tile jt
+  // and O += P.V of tile jt - 1 as two wgmma groups and lets the other
+  // warpgroup go; tile jt's softmax runs while its P.V and the other's turn
+  // hold the tensor cores; once P.V is done, O is rescaled and tile jt -
+  // 1's stage freed. Issue and waits sit in one block with no branch
+  // between them (ptxas serializes the wgmma otherwise).
+  auto turn = [&](int jt, auto edge) {
+    float s[W / 2], alpha[2];
+    mbar_wait(&full[jt % wg::kStages], (jt / wg::kStages) & 1);
+    __syncwarp();  // wgmma needs the warp converged
+    turns.wait();
+    wgmma_fence();
+    wg::score_product<HD, W>(s, q_own, k_tile(jt));
+    wgmma_commit();
+    wg::walk_product<HD, W>(acc, pa, k_tile(jt - 1) + L::kWalkBytes);
+    wgmma_commit();
+    turns.pass();
+    wgmma_wait<1>();
+    wgmma_fence_operand(s);
+    probs(s, jt, alpha, edge);
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    release(jt - 1);
+    finish(s, alpha);
+  };
+  mbar_wait(&bars[0], 0);
+  if (cg == 1) turns.pass();
+
+  // A warpgroup takes n_tiles + 1 turns: turn 0 issues S of tile 0, turns
+  // 1 .. nv - 1 as above, turn nv the last P.V, the rest nothing (a
+  // warpgroup past S or past the causal diagonal); turn jt frees tile jt -
+  // 1's stage.
+  if (nv > 0) {
+    float s[W / 2], alpha[2];
+    mbar_wait(&full[0], 0);
+    __syncwarp();
+    turns.wait();
+    wgmma_fence();
+    wg::score_product<HD, W>(s, q_own, k_tile(0));
+    wgmma_commit();
+    turns.pass();
+    wgmma_wait<0>();
+    wgmma_fence_operand(s);
+    if (nv == 1) {
+      probs(s, 0, alpha, std::true_type{});
+    } else {
+      probs(s, 0, alpha, std::false_type{});
+    }
+    finish(s, alpha);
+  } else {
+    turns.wait();
+    turns.pass();
+  }
+  for (int jt = 1; jt < nv - 1; ++jt) turn(jt, std::false_type{});
+  if (nv > 1) turn(nv - 1, std::true_type{});
+  int jt = 1;
+  if (nv > 0) {                                   // turn nv: P.V of nv - 1
+    turns.wait();
+    wgmma_fence();
+    wg::walk_product<HD, W>(acc, pa, k_tile(nv - 1) + L::kWalkBytes);
+    wgmma_commit();
+    if (!(cg == 1 && nv == n_tiles)) turns.pass();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    release(nv - 1);
+    jt = nv + 1;
+  }
+  for (; jt <= n_tiles; ++jt) {                   // nothing visible
+    turns.wait();
+    if (!(cg == 1 && jt == n_tiles)) turns.pass();
+    release(jt - 1);
+  }
+
+
+"""
+_FWD_MERGED = _FWD_SHIFTED.replace("""\
+    wg::score_product<HD, W>(s, q_own, k_tile(jt));
+    wgmma_commit();
+    wg::walk_product<HD, W>(acc, pa, k_tile(jt - 1) + L::kWalkBytes);
+    wgmma_commit();
+    turns.pass();
+    wgmma_wait<1>();
+    wgmma_fence_operand(s);
+    probs(s, jt, alpha, edge);
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    release(jt - 1);
+    finish(s, alpha);
+""", """\
+    wg::walk_product<HD, W>(acc, pa, k_tile(jt - 1) + L::kWalkBytes);
+    wg::score_product<HD, W>(s, q_own, k_tile(jt));
+    wgmma_commit();
+    turns.pass();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    wgmma_fence_operand(s);
+    release(jt - 1);
+    probs(s, jt, alpha, edge);
+    finish(s, alpha);
+""")
+_FWD_WALK64 = [("constexpr int kWalk = 128;", "constexpr int kWalk = 64;"),
+               ("constexpr int kStages = 3;", "constexpr int kStages = 4;")]
+# the row max over raw scores and P = 2^fma(s, scale*log2 e, -m2): one
+# multiply a score fewer (valid for scale > 0 only, masked scores -inf)
+_FWD_FUSED_SCALE = [
+    ("#pragma unroll\n    for (int i = 0; i < W / 2; ++i) s[i] *= "
+     "scale_log2;\n", ""),
+    ("? wg::kMasked2 : s[i];", "? -INFINITY : s[i];"),
+    ("    float mx[2] = {m2[0], m2[1]};",
+     "    float mx[2] = {-INFINITY, -INFINITY};"),
+    ("      alpha[r] = wg::exp2_approx(m2[r] - mx[r]);",
+     "      mx[r] = fmaxf(m2[r], mx[r] * scale_log2);\n"
+     "      alpha[r] = wg::exp2_approx(m2[r] - mx[r]);"),
+    ("      s[i] = wg::exp2_approx(s[i] - m2[(i >> 1) & 1]);",
+     "      s[i] = wg::exp2_approx(fmaf(s[i], scale_log2, "
+     "-m2[(i >> 1) & 1]));")]
+# O rescaled only when a row's max moved (a vote per warp)
+_FWD_LAZY_RESCALE = [(
+    "#pragma unroll\n    for (int i = 0; i < HD / 2; ++i) acc[i] *= "
+    "alpha[(i >> 1) & 1];\n",
+    "    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) "
+    "{\n#pragma unroll\n      for (int i = 0; i < HD / 2; ++i) acc[i] *= "
+    "alpha[(i >> 1) & 1];\n    }\n")]
+
+Edit = Tuple[Union[str, Tuple[str, str]], str]
+#: source → {variant: [(text, replacement), ...]}, where text may be a pair
+#: (start, end): the span from start up to end; the first is the tree's
+VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
+    "flash_attention_fwd": {
+        "turns apart, walk 128, 3 stages": [],
+        "turns apart, walk 128, 2 stages": [
+            ("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+        "turns apart, walk 64, 4 stages": _FWD_WALK64,
+        "shifted, walk 128, 3 stages": [(_FWD_WALK, _FWD_SHIFTED)],
+        "shifted, walk 64, 4 stages": [(_FWD_WALK, _FWD_SHIFTED),
+                                       *_FWD_WALK64],
+        "merged, walk 128, 3 stages": [(_FWD_WALK, _FWD_MERGED)],
+        "merged, walk 64, 4 stages": [(_FWD_WALK, _FWD_MERGED),
+                                      *_FWD_WALK64],
+        "turns apart, fused scale": _FWD_FUSED_SCALE,
+        "turns apart, lazy rescale": _FWD_LAZY_RESCALE,
+        "turns apart, fused scale, lazy rescale": [*_FWD_FUSED_SCALE,
+                                                   *_FWD_LAZY_RESCALE],
+        "shifted, walk 64, fused scale, lazy rescale": [
+            (_FWD_WALK, _FWD_SHIFTED), *_FWD_WALK64, *_FWD_FUSED_SCALE,
+            *_FWD_LAZY_RESCALE],
+    },
+    "collective_matmul": {
+        "one wgmma group a stage": [],
+        "one group in flight": [
+            ("    wgmma_wait<0>();\n    wgmma_fence_operand(acc);\n"
+             "    if (lane == 0) mbar_arrive(&empty[st]);",
+             "    wgmma_wait<1>();\n    wgmma_fence_operand(acc);\n"
+             "    if (kt > 0 && lane == 0)\n"
+             "      mbar_arrive(&empty[(kt + wg::kStages - 1) % "
+             "wg::kStages]);"),
+            ("  // epilogue: round once to bfloat16; only",
+             "  wgmma_wait<0>();\n  wgmma_fence_operand(acc);\n"
+             "  // epilogue: round once to bfloat16; only")],
+    },
+}
+
+
+def build_variants(source: str) -> Dict[str, ctypes.CDLL]:
+    """Compile every variant of ``csrc/<source>.cu`` at once, print ptxas's
+    lines on registers, spills and warnings; → {variant: library}."""
+    out_dir = os.path.join(bld.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = bld.find_nvcc()
+    with open(os.path.join(bld.CSRC_DIR, source + ".cu")) as f:
+        text = f.read()
+    jobs = {}
+    for i, (name, subs) in enumerate(VARIANTS[source].items()):
+        body = text
+        for old, new in subs:
+            if isinstance(old, tuple):
+                i = body.find(old[0])
+                j = body.find(old[1], i)
+                if i < 0 or j < 0:
+                    raise ValueError(f"{source} ({name}): {old!r} not found")
+                body = body[:i] + new + body[j:]
+            elif old in body:
+                body = body.replace(old, new)
+            else:
+                raise ValueError(f"{source} ({name}): {old!r} not found")
+        path = os.path.join(out_dir, f"{source}_{i}.cu")
+        with open(path, "w") as f:
+            f.write(body)
+        so = path[:-3] + ".so"
+        cmd = [nvcc, *bld.NVCC_FLAGS, f"-I{bld.CSRC_DIR}", "-o", so, path]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      so)
+    libs, failed = {}, []
+    for name, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "arning", "Compiling entry")):
+                print(f"  ptxas[{source}, {name}]: {line.strip()[:200]}")
+        if proc.returncode:
+            failed.append(f"{name}:\n{log[-3000:]}")
+        else:
+            libs[name] = ctypes.CDLL(so)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return libs
+
+
+def _turns(cs, source, libs, fn, iters):
+    """``fn``'s median ms with each variant swapped in, in turns."""
+    names = list(libs)
+    order = names + names[::-1] + names
+    times = {n: [] for n in names}
+    tree = bld.load_kernels()[source]
+    try:
+        for name in order:
+            bld.load_kernels()[source] = libs[name]
+            times[name].append(cs.cuda_ms(torch, fn, iters))
+    finally:
+        bld.load_kernels()[source] = tree
+    return times
+
+
+def probe_flash_fwd(cs):
+    from ..ops.transformer import flash_attention as fa
+
+    libs = build_variants("flash_attention_fwd")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 90)
+    tree = bld.load_kernels()["flash_attention_fwd"]
+    m = cs.FA_MAIN
+    main = cs.flash_inputs(torch, gen, m["B"], m["S"], m["H"], m["KV"],
+                           m["hd"], torch.bfloat16)
+    try:
+        for name, lib in libs.items():
+            bld.load_kernels()["flash_attention_fwd"] = lib
+            for S in (1, 63, 64, 65, 127, 128, 129, 257):
+                for causal in (True, False):
+                    for hd in (64, 128):
+                        q, k, v, do = cs.flash_inputs(torch, gen, 2, S, 8, 2,
+                                                      hd, torch.bfloat16)
+                        cs.check_flash(torch, fa, f"{name} bf16 S={S} "
+                                       f"causal={causal} hd={hd}", q, k, v,
+                                       do, causal, cs.FLASH_BF16_TERMS,
+                                       cs.BF16_RTOL, cs.BF16_ATOL)
+            cs.check_flash(torch, fa, f"{name} bf16 main shapes", *main,
+                           True, cs.FLASH_BF16_TERMS, cs.BF16_RTOL,
+                           cs.BF16_ATOL)
+            a = fa.flash_attention_fwd(*main[:3], True)
+            b = fa.flash_attention_fwd(*main[:3], True)
+            cs.check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                     f"{name}: two calls differ")
+            del a, b
+    finally:
+        bld.load_kernels()["flash_attention_fwd"] = tree
+    q, k, v, do = main
+    scale = 1.0 / math.sqrt(m["hd"])
+    for tag, causal, args in (("hd 128 causal", True, (q, k, v)),
+                              ("hd 128 full", False, (q, k, v))):
+        times = _turns(cs, "flash_attention_fwd", libs,
+                       lambda: fa.flash_attention_fwd(*args, causal, scale),
+                       20)
+        for name, ts in times.items():
+            print(f"time K1 {tag} [{name}]: "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = cs.cuda_ms(torch, lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True), 20)
+    print(f"time SDPA forward hd 128 causal: {sdpa:.4f} ms")
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    for name, fn in (("K2", fa.flash_attention_bwd_dq),
+                     ("K3", fa.flash_attention_bwd_dkv)):
+        t = cs.cuda_ms(torch, lambda: fn(q, k, v, do, lse, delta, True,
+                                         scale), 10)
+        print(f"time {name} (the tree's): {t:.4f} ms")
+
+
+def probe_shard_major(cs):
+    from ..kernels import fused_collective_matmul as fcm
+
+    libs = build_variants("collective_matmul")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 91)
+    bf16 = torch.bfloat16
+    M, K, N = cs.WORLD_SPEC["gemm"]
+    x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+    w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5).to(bf16)
+    ref = fcm.matmul_reference(x, w)
+    tree = bld.load_kernels()["collective_matmul"]
+    first = None
+    try:
+        for name, lib in libs.items():
+            bld.load_kernels()["collective_matmul"] = lib
+            got = fcm.shard_major_matmul(x, w, 2)
+            cs._compare_limit(torch, f"{name} K11 main shapes", got, ref,
+                              cs.matmul_limit(torch, x, w, got, ref),
+                              cs.MATMUL_LIMIT)
+            for n in (1, 4, 2):
+                cs.check(torch.equal(got, fcm.shard_major_matmul(x, w, n)),
+                         f"{name}: {n} shards differ from 2")
+            if first is not None:
+                cs.check(torch.equal(got, first), f"{name}: other bits")
+            first = got
+            for (mm, kk, nn, sh) in ((300, 72, 200, 3), (64, 4096, 40, 2),
+                                     (130, 136, 520, 2)):
+                for dt in (bf16, torch.float32):
+                    xe = torch.randn(mm, kk, generator=gen,
+                                     device="cuda").to(dt)
+                    we = torch.randn(kk, nn, generator=gen,
+                                     device="cuda").to(dt)
+                    g2 = fcm.shard_major_matmul(xe, we, sh)
+                    r2 = fcm.matmul_reference(xe, we)
+                    cs._compare_limit(
+                        torch, f"{name} K11 {str(dt)[6:]} [{mm}, {kk}] @ "
+                        f"[{kk}, {nn}] {sh} shards", g2, r2,
+                        cs.matmul_limit(torch, xe, we, g2, r2),
+                        cs.MATMUL_LIMIT)
+    finally:
+        bld.load_kernels()["collective_matmul"] = tree
+    times = _turns(cs, "collective_matmul", libs,
+                   lambda: fcm.shard_major_matmul(x, w, 2), 10)
+    for name, ts in times.items():
+        print(f"time K11 [{name}]: " + ", ".join(f"{t:.4f}" for t in ts)
+              + " ms")
+    lib = cs.cuda_ms(torch, lambda: torch.matmul(x, w), 10)
+    print(f"time torch.matmul: {lib:.4f} ms")
+
+
+PROBES = {"flash_fwd": probe_flash_fwd, "shard_major": probe_shard_major}
+
+
+def main(argv: List[str]) -> int:
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    bld.load_kernels()
+    print(f"tree's kernels built in {time.perf_counter() - t0:.1f} s")
+    for name in argv or list(PROBES):
+        t0 = time.perf_counter()
+        PROBES[name](cs)
+        torch.cuda.synchronize()
+        print(f"probe {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -261,3 +261,122 @@ def test_bf16_tile_walk_emulation(S, causal, hd, rounding):
                  + chip_smoke.FLASH_BF16_TERMS * bound)
         worst = float(((g_ - w_).abs() / limit).max())
         assert worst <= 1.0, f"{name}: {worst:.3f}x chip_smoke's limit"
+
+
+# --------------------------------------------------------------------- #
+# The bf16 forward's tile walk (csrc/flash_attention_fwd.cu), emulated
+# --------------------------------------------------------------------- #
+FWD_WALK = 128               # keys of the forward's walked tile (wg::kWalk)
+
+
+def _emulate_fwd(q, k, v, causal, scale, rounding):
+    """O and the LSE as the bf16 forward walks them: CTAs of ``OWN`` query
+    rows, two warpgroups of 64, key tiles of ``FWD_WALK``; rows and keys
+    past S read as zeros (TMA's fill); the online softmax in base 2 (the
+    running max m2 of s·scale·log2 e and the sum l, P = 2^(s2 − m2), LSE =
+    (m2 + log2 l)·ln 2), masked scores −1e30·log2 e; the mask only on the
+    last tile a warpgroup sees, each skipped tile checked to be fully
+    masked and each earlier tile to need no mask; with ``rounding``, P
+    rounded to bf16 before P·V and O once."""
+    B, S, H, hd = q.shape
+    rnd = (lambda x: x.bfloat16().float()) if rounding else (lambda x: x)
+    c = torch.tensor(scale, dtype=torch.float32) * np.float32(np.log2(np.e))
+    masked = torch.tensor(-1e30, dtype=torch.float32) * np.float32(
+        np.log2(np.e))
+    n_own, nk = -(-S // OWN), -(-S // FWD_WALK)
+
+    def pad(x, rows):
+        return torch.cat([x, x.new_zeros(rows - S, hd)])
+
+    o = torch.zeros(B, S, H, hd)
+    lse = torch.zeros(B, H, S)
+    for b in range(B):
+        for h in range(H):
+            qb = pad(q[b, :, h].float(), n_own * OWN)
+            kb, vb = (pad(x[b, :, h].float(), nk * FWD_WALK) for x in (k, v))
+            for tile in range(n_own):
+                q0 = tile * OWN
+                n_tiles = (min(nk, -(-(q0 + OWN) // FWD_WALK)) if causal
+                           else nk)
+                for rw in (q0, q0 + 64):                 # the two warpgroups
+                    own = torch.arange(rw, rw + 64)
+                    valid = own < S
+                    nv = (0 if rw >= S else
+                          min(n_tiles, (rw + 63) // FWD_WALK + 1) if causal
+                          else n_tiles)
+                    m2 = torch.full((64,), float(masked))
+                    l = torch.zeros(64)
+                    acc = torch.zeros(64, hd)
+                    for jt in range(n_tiles):
+                        j0 = jt * FWD_WALK
+                        keys = torch.arange(j0, j0 + FWD_WALK)
+                        mask = (keys[None] < S) & (
+                            (own[:, None] >= keys[None]) | (not causal))
+                        if jt >= nv:
+                            assert not mask[valid].any()
+                            continue
+                        edge = jt == nv - 1
+                        if not edge:
+                            assert mask[valid].all()
+                        s2 = (qb[rw:rw + 64] @ kb[j0:j0 + FWD_WALK].T) * c
+                        if edge:
+                            s2 = torch.where(mask, s2, masked)
+                        mx = torch.maximum(m2, s2.amax(1))
+                        alpha = torch.exp2(m2 - mx)
+                        m2 = mx
+                        p = torch.exp2(s2 - m2[:, None])
+                        l = alpha * l + p.sum(1)
+                        acc = (acc * alpha[:, None]
+                               + rnd(p) @ vb[j0:j0 + FWD_WALK])
+                    l = torch.where(l == 0, 1.0, l)
+                    o[b, own[valid], h] = (acc / l[:, None])[valid]
+                    lse[b, h, own[valid]] = ((m2 + torch.log2(l))
+                                             * np.float32(np.log(2)))[valid]
+    return rnd(o), lse
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 257])
+def test_bf16_fwd_tile_walk_emulation(S, causal, hd, rounding):
+    """The bf16 forward's tile walk on the CPU (``_emulate_fwd``). Without
+    rounding it must match the plain forward within ``TOL`` (float32 sums
+    in another order, base-2 exponentials); with P rounded to bf16 it must
+    stay within the limit ``chip_smoke.py`` holds the card's K1 to
+    (``FLASH_BF16_TERMS`` of |P|@|V| on top of two output ulps,
+    ``BF16_RTOL``) of the JAX ``_fwd`` in interpret mode, on inputs rounded
+    to bf16 values; the LSE within 1e-4 + 1e-5·|ref| either way. B 1, H 2.
+    """
+    import chip_smoke
+
+    rng = np.random.default_rng(2000 + S + hd)
+    q, k, v = (rng.normal(size=(1, S, 2, hd)).astype(np.float32)
+               for _ in range(3))
+    if rounding:
+        q, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+                   for x in (q, k, v))
+    scale = 1.0 / np.sqrt(hd)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = _emulate_fwd(*t, causal, scale, rounding)
+    if rounding:
+        block = 128 if S <= 128 else 256
+        o_j, lse_j = jax_fa._fwd(_bhsd(q), _bhsd(k), _bhsd(v), scale, causal,
+                                 block, block)
+        o_ref = torch.from_numpy(_bshd(o_j).copy())
+        lse_ref = torch.from_numpy(np.asarray(lse_j).copy())
+        s = torch.einsum("bqhd,bkhd->bhqk", *t[:2]) * scale
+        if causal:
+            s = torch.where(port_fa._causal_mask(S, s.device), s, -1e30)
+        p = torch.exp(s - lse_ref[..., None])
+        terms = torch.einsum("bhqk,bkhd->bqhd", p, t[2].abs())
+        limit = (chip_smoke.BF16_ATOL + chip_smoke.BF16_RTOL * o_ref.abs()
+                 + chip_smoke.FLASH_BF16_TERMS * terms)
+        worst = float(((o - o_ref).abs() / limit).max())
+        assert worst <= 1.0, f"O: {worst:.3f}x chip_smoke's limit"
+    else:
+        o_ref, lse_ref = port_fa.flash_attention_fwd_reference(*t, causal,
+                                                               scale)
+        np.testing.assert_allclose(o.numpy(), o_ref.numpy(), **TOL)
+    np.testing.assert_array_less((lse - lse_ref).abs().numpy(),
+                                 (1e-4 + 1e-5 * lse_ref.abs()).numpy())
