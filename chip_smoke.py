@@ -7,21 +7,32 @@ Phases, each ending in ``torch.cuda.synchronize()``; any failure exits
 non-zero before the last line is printed:
 
   1. the card: ``nvidia-smi`` name and power limit, ``nvcc``;
-  2. build the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one ``nvcc``
-     per source, in parallel) and print the build time and ptxas report,
+  2. build the CUDA kernels afresh from ``deepspeed_tpu_torch/csrc`` (one
+     ``nvcc`` per source, in parallel; libraries an earlier process left
+     in the build directory are removed first) and print the build time
+     and ptxas report,
      with the registers, spills and static shared memory of the kernels
-     redesigned for Hopper (``REDESIGNED``: K7, K4, K2, K3, K1 and K11); a
-     spill in one of them, or a wgmma serialization warning outside K4's
-     (there since its redesign), fails the run;
+     redesigned for Hopper (``REDESIGNED``: K6, K7, K4, K2, K3, K1 and
+     K11); a spill in one of them, or a wgmma serialization warning outside
+     K4's (there since its redesign), fails the run;
   3. hold each kernel against its plain PyTorch version on the card: at the
-     serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16) and on
-     float32 edge batches (padding rows, zero-length rows, contexts ending
-     on a page edge, a NaN-poisoned sequence); then K7's split-context
-     design: the same q and K/V rows paged at 64 and at 128 must give
-     bit-equal outputs, two calls bit-equal ones, on the split-edge
-     lengths (0, 1, 63, 64, 65, 127, 128, 129, 1000, 2048) in bf16 and
-     f32 against the plain version; NSPLIT and the live first-pass blocks
-     are logged;
+     serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16; K6's
+     bf16 kernel within two ulps plus FLASH_BF16_TERMS of |P|@|V|, since
+     it rounds P to bf16, two calls bit for bit, and a planted fault, one
+     64-position context chunk dropped from the longest row's sequence,
+     that must read at least 10x the limit) and on float32 edge batches
+     (padding rows, zero-length rows, contexts ending on a page edge, a
+     NaN-poisoned sequence); then K7's split-context design: the same q
+     and K/V rows paged at 64 and at 128 must give bit-equal outputs, two
+     calls bit-equal ones, on the split-edge lengths (0, 1, 63, 64, 65,
+     127, 128, 129, 1000, 2048) in bf16 and f32 against the plain version;
+     NSPLIT and the live first-pass blocks are logged; then K6 and K7 on
+     edge batches (``PAGED_EDGES``: hd 7, 16, 80, 96, 100 and 256; G 1, 3,
+     16 and 71) in bf16 and f32, without ALiBi and with Bloom's and
+     Falcon's (kv_lens past 256), NaN isolation in both; then ``TransformerConfig.tiny()`` (hd 16) through
+     its default kernels: ``generate`` with ``attn_impl="paged"`` (K6, K7)
+     against ``"gather"``, and 4 training steps with ``attn_impl="auto"``
+     at S 128 (K1-K4; hd 16 zero-padded to 64) against the unfused path;
   4. the main path: ``InferenceEngineV2.generate`` at the full width and
      depth of ``TransformerConfig.llama3_8b()`` (random bf16 weights from a
      seeded generator), 8 prompts of 128-1024 tokens, 64 new tokens each:
@@ -33,15 +44,20 @@ non-zero before the last line is printed:
   5. time each serving kernel, its plain version and one PyTorch library
      call (``scaled_dot_product_attention`` on the gathered dense K/V,
      timing only) at the main path's shapes, with the L2 cache flushed
-     before every timed launch, beside the card's bound;
+     before every timed launch, beside the card's bound; K6 and its SDPA
+     call also by their kernels' own device time (``device_ms``,
+     ``torch.profiler``);
   6. hold each training kernel against its plain version: flash attention
      forward (O, LSE), dQ and dK/dV at B 4, S 2048, H 32 (8 KV heads
      repeated), hd 128, bf16, causal, and on float32 edge batches (S 1,
      100, 257; causal and full; hd 64 and 128; G 1 and 4) and bf16 ones
      (S 1, 63, 64, 65, 127, 128, 129, 100, 257: the bf16 kernels' tile
-     edges; causal and full; hd 64 and 128); the fused RMSNorm+matmul at M
-     8192, D 4096, F 4096/1024/14336 in bf16 and at M 100, F 1000 in
-     float32 and bf16; each elementwise against a stated limit; K1, K2, K3
+     edges; causal and full; hd 64 and 128), and at hd 16, 80 and 96
+     (zero-padded to 64 or 128 by the wrappers) in bf16 and float32; the
+     fused RMSNorm+matmul at M 8192, D 4096, F 4096/1024/14336 in bf16, at
+     M 100, F 1000 in float32 and bf16, and at D/F 4093/1003 and 61/45
+     (zero-padded to multiples of 8) and with x off 16-byte alignment
+     (copied); each elementwise against a stated limit; K1, K2, K3
      and K4 twice bit for bit at the main shapes, and planted faults that
      must read at least 10x their limits (K4: one 64-deep k-stage skipped;
      K1: one 128-key tile dropped from O; K2: one 64-key tile dropped from
@@ -83,7 +99,7 @@ non-zero before the last line is printed:
      against their plain versions on 16 edge batches: float32 and bf16,
      block 16, 32, 64 and 128, hd 64 and 128, each layout class in turn,
      per-head layouts, an emptied q-block row (O = 0, LSE = -1e30 exactly)
-     and S off the block grid;
+     and S off the block grid; and at hd 16, 80 and 96 (zero-padded);
  14. the sparse-attention path: ``SparseSelfAttention(cfg)(q, k, v,
      use_kernel=True)`` at llama3-8B attention width (B 1, H 32, S 8192,
      hd 128, bf16, block 64): under ``torch.no_grad()`` with the Fixed
@@ -145,7 +161,9 @@ non-zero before the last line is printed:
      down projection's shapes (x [4096, 14336] @ w [14336, 4096], bf16, 2
      shards; the same bits at 1, 2 and 4 shards and across two calls) and
      on bf16 and float32 edges (M 300, K 72, N 200 in 3 shards; M 64, K
-     4096, N 40 in 2), K12 ``_gathered_dequant_matmul`` at x
+     4096, N 40 in 2; K and N off multiples of 8, 75/203 and 61/45,
+     zero-padded by the wrapper; x off 16-byte alignment, copied), K12
+     ``_gathered_dequant_matmul`` at x
      [4096, 14336] against 2 int4 and int8 shards of [7168, 4096] and an
      odd float32 edge, each within an elementwise limit set from the
      roundings' statistics (``matmul_limit``), with planted faults (a
@@ -222,6 +240,11 @@ F32_RTOL = 1e-5
 # ulps (2**-6 of the terms), the others only by the float32 summation
 # order of the product (D*2**-24 of the terms)
 K4_EDGE_TERMS = 2.0 ** -6
+
+# K6's bf16 kernel rounds P to bf16 (relative error <= 2**-9 a term) before
+# P.V, as K1 does, so its limit adds FLASH_BF16_TERMS of |P|@|V| (the plain
+# version on a pool whose V half is |V|) to the two-ulp output rounding
+K6_CHUNK = 64                      # K6's walked context chunk (hd <= 128)
 
 K6_REPLACES = "deepspeed_tpu/inference/v2/kernels/ragged_ops.py:65"
 K7_REPLACES = "deepspeed_tpu/inference/v2/kernels/ragged_ops.py:381"
@@ -433,6 +456,33 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return times[len(times) // 2]
 
 
+def device_ms(torch, fn, iters=20):
+    """Mean device time of the kernels ``fn`` launches, in ms, from
+    ``torch.profiler`` (the kernels' own durations, without the host's
+    launch latency that ``cuda_ms``'s events also take in when the host is
+    slower than the card). Before every call a 256 MB buffer is inverted
+    (its kernel is left out of the sum), as ``cuda_ms`` flushes the L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    global _flush_buf
+    if _flush_buf is None:
+        _flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            _flush_buf.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "bitwise_not" not in e.name
+                and e.name != "Command Buffer Full")
+    return total / 1e3 / iters
+
+
 # --------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------- #
@@ -486,10 +536,11 @@ def ptxas_report(log_text, names):
     return out
 
 
-# the kernels redesigned for Hopper (split-context K7, TMA + wgmma K4, K2,
-# K3, K1 and K11), by source; their dynamic shared memory comes on top of
-# ptxas's static figure
+# the kernels redesigned for Hopper (mma.sync + cp.async K6, split-context
+# K7, TMA + wgmma K4, K2, K3, K1 and K11), by source; their dynamic shared
+# memory comes on top of ptxas's static figure
 REDESIGNED = {
+    "ragged_paged_attention": ("ragged_paged_mma_kernel",),
     "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
     "rmsnorm_matmul": ("rms_rows_kernel", "rmsnorm_matmul_wgmma_kernel"),
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
@@ -507,9 +558,16 @@ REDESIGNED_ROWS = {"flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
 def phase_build(torch):
     from deepspeed_tpu_torch.ops.op_builder import get_builder, load_kernels
 
+    builder = get_builder()
+    # build afresh: a library an earlier process left in the build
+    # directory would load without ptxas's report, which the spill check
+    # below reads
+    if os.path.isdir(builder.build_dir):
+        for f in os.listdir(builder.build_dir):
+            if f.endswith(".so"):
+                os.remove(os.path.join(builder.build_dir, f))
     t0 = time.perf_counter()
     libs = load_kernels()
-    builder = get_builder()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {builder.build_seconds:.1f} s)")
     for name, text in builder.build_log.items():
@@ -550,6 +608,67 @@ def _compare(torch, name, k, p, atol, rtol=0.0):
     return err
 
 
+def abs_v_pool(pages, KV):
+    """A copy of the page pool with its V half replaced by |V|: the plain
+    paged attention on it gives sum_j P_j |V_j|, the terms' magnitudes
+    behind each output."""
+    t = pages.clone()
+    t[:, :, KV:] = t[:, :, KV:].abs()
+    return t
+
+
+def ragged_limit(torch, ops, q, pages, kvl, pt, cu, KV, ref, **kw):
+    """K6's per-element limit (see K6_CHUNK's note) → (limit, why)."""
+    if q.dtype == torch.bfloat16:
+        terms = ops.ragged_paged_attention_reference(
+            q, abs_v_pool(pages, KV), kvl, pt, cu, num_kv_heads=KV,
+            **kw).float()
+        return (BF16_ATOL + BF16_RTOL * ref.float().abs()
+                + FLASH_BF16_TERMS * terms,
+                f"{BF16_ATOL:.0e} + {BF16_RTOL:.3g}*|ref| + "
+                f"{FLASH_BF16_TERMS:.3g}*|P|@|V|")
+    return F32_ATOL + 0.0 * ref, f"{F32_ATOL:.0e}, float32"
+
+
+def check_ragged(torch, ops, tag, q, pages, kvl, pt, cu, KV, **kw):
+    """K6 against its plain version within ``ragged_limit``, and (bf16)
+    two calls bit for bit. → max abs error."""
+    out = ops.ragged_paged_attention(q, pages, kvl, pt, cu, num_kv_heads=KV,
+                                     **kw)
+    ref = ops.ragged_paged_attention_reference(q, pages, kvl, pt, cu,
+                                               num_kv_heads=KV, **kw)
+    limit, why = ragged_limit(torch, ops, q, pages, kvl, pt, cu, KV, ref,
+                              **kw)
+    err = _compare_limit(torch, f"ragged_paged_attention {tag}", out, ref,
+                         limit, why)
+    if q.dtype == torch.bfloat16:
+        again = ops.ragged_paged_attention(q, pages, kvl, pt, cu,
+                                           num_kv_heads=KV, **kw)
+        check(torch.equal(again, out), f"ragged {tag}: two calls differ")
+    return err
+
+
+def ragged_dropped_chunk(torch, ops, q, pages, kvl, pt, cu, KV, s, lo, hi):
+    """The plain K6 with context positions [lo, hi) of sequence s left out
+    of its rows' softmax (a CTA that lost a walked chunk). → output."""
+    out = ops.ragged_paged_attention_reference(q, pages, kvl, pt, cu,
+                                               num_kv_heads=KV).float()
+    H, hd = q.shape[1], q.shape[2]
+    G, ps = H // KV, pages.shape[1]
+    q0, q1, L = int(cu[s]), int(cu[s + 1]), int(kvl[s])
+    n = q1 - q0
+    ctx = pages[pt[s, :-(-L // ps)].long()].reshape(-1, 2 * KV, hd)[:L]
+    k = ctx[:, :KV].float().repeat_interleave(G, dim=1)
+    v = ctx[:, KV:].float().repeat_interleave(G, dim=1)
+    sc = torch.einsum("thd,chd->htc", q[q0:q1].float(), k) / math.sqrt(hd)
+    pos = torch.arange(L, device=q.device)
+    q_pos = L - n + torch.arange(n, device=q.device)
+    keep = (pos[None, :] <= q_pos[:, None]) & ~((pos >= lo) & (pos < hi))
+    sc = torch.where(keep[None], sc, -1e30)
+    out[q0:q1] = torch.einsum("htc,chd->thd", torch.softmax(sc, dim=-1), v)
+    return out.to(q.dtype)
+
+
 def phase_kernel_checks(torch, ops, shapes):
     """Each kernel against its plain version on the card. Returns the
     main-shape errors by kernel name."""
@@ -563,11 +682,24 @@ def phase_kernel_checks(torch, ops, shapes):
         pad_tokens=m["k6_pad"])
     args = (q, pages, kvl, pt, cu)
     kw = dict(num_kv_heads=m["KV"])
-    errs["ragged_paged_attention"] = _compare(
-        torch, "ragged_paged_attention bf16 main shapes",
-        ops.ragged_paged_attention(*args, **kw),
-        ops.ragged_paged_attention_reference(*args, **kw), BF16_ATOL,
-        BF16_RTOL)
+    errs["ragged_paged_attention"] = check_ragged(
+        torch, ops, "bf16 main shapes", *args, m["KV"])
+    # a planted fault: the longest row's sequence with one walked chunk
+    # dropped must read far above the limit
+    s_long = max(range(len(m["k6_q_lens"])),
+                 key=lambda i: m["k6_kv_lens"][i] * (m["k6_q_lens"][i] > 0))
+    lo = (m["k6_kv_lens"][s_long] // 2) // K6_CHUNK * K6_CHUNK
+    ref = ops.ragged_paged_attention_reference(*args, **kw)
+    limit, _ = ragged_limit(torch, ops, *args, m["KV"], ref)
+    fault = ragged_dropped_chunk(torch, ops, *args, m["KV"], s_long, lo,
+                                 lo + K6_CHUNK)
+    errs["ragged_paged_attention_fault_x"] = planted_fault(
+        torch, f"K6 with the context chunk [{lo}, {lo + K6_CHUNK}) of "
+        f"sequence {s_long} dropped", fault, ref, limit)
+    check(errs["ragged_paged_attention_fault_x"] >= 10.0,
+          f"K6's limit reads a dropped chunk at only "
+          f"{errs['ragged_paged_attention_fault_x']:.2f}x, not >= 10x")
+    del ref, limit, fault
     m["k6_inputs"] = args
     q, pages, kvl, pt, _ = paged_inputs(
         torch, gen, KV=m["KV"], G=m["G"], hd=m["hd"], ps=m["ps"], NB=m["NB"],
@@ -625,6 +757,181 @@ def phase_kernel_checks(torch, ops, shapes):
               f"decode {tag}: poisoned sequence lost its NaN")
     torch.cuda.synchronize()
     return errs
+
+
+# K6/K7 edge batches beyond the main shapes, (KV, G, hd, ps): head dims off
+# 64/128 (16, 80, 96, 256; 100 and 7 take 8- and 2-byte copies), groups of
+# 1, 16 and 71 (Falcon-7B's MQA width)
+PAGED_EDGES = ((2, 1, 16, 16), (2, 4, 80, 64), (2, 16, 96, 32),
+               (1, 71, 16, 64), (2, 2, 256, 64), (2, 3, 100, 16),
+               (1, 4, 7, 16))
+
+
+def phase_paged_edge_checks(torch, ops):
+    """K6 and K7 against their plain versions on edge batches (PAGED_EDGES)
+    in bf16 and float32, without ALiBi and with both forms (kv_lens past
+    256, where Falcon's bf16(k_pos) is inexact): padding rows, empty and
+    interior-empty rows, page edges; K6's bf16 kernel two calls bit for
+    bit; a NaN-poisoned sequence reaching no other row in either kernel.
+    → the number of checks."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    n = 0
+    for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for KV, G, hd, ps in PAGED_EDGES:
+            NB = 640 // ps
+            q_lens = [7, 0, 1, 16, 1, 33, 0, 0]      # interior/trailing zeros
+            kv_lens = [7, 0, 64, 16, 300, 400, 0, 0]
+            q, pages, kvl, pt, cu = paged_inputs(
+                torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB,
+                n_pages=9 * NB + 1, q_lens=q_lens, kv_lens=kv_lens,
+                dtype=dtype, pad_tokens=5)
+            dec_lens = [33, 0, 64, 1, 0, 500, 16, 300]
+            qd, pd, kd, ptd, _ = paged_inputs(
+                torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB,
+                n_pages=9 * NB + 1, q_lens=None, kv_lens=dec_lens,
+                dtype=dtype)
+            for alibi in (None, False, True):
+                kw = ({} if alibi is None else
+                      dict(alibi=ops.alibi_slopes(KV * G).tolist(),
+                           alibi_scaled=alibi))
+                form = ("none" if alibi is None
+                        else "falcon" if alibi else "bloom")
+                tag = f"{dt} KV={KV} G={G} hd={hd} ps={ps} alibi={form}"
+                check_ragged(torch, ops, tag, q, pages, kvl, pt, cu, KV, **kw)
+                n += 1
+                out = ops.ragged_paged_attention(q, pages, kvl, pt, cu,
+                                                 num_kv_heads=KV, **kw)
+                check(bool((out[-5:] == 0).all()),
+                      f"ragged {tag}: padding rows not 0")
+                dec = ops.decode_paged_attention(qd, pd, kd, ptd,
+                                                 num_kv_heads=KV, **kw)
+                ref = ops.decode_attend_dense(qd, pd, kd, ptd,
+                                              num_kv_heads=KV, **kw)
+                if dt == "bf16":
+                    _compare(torch, f"decode_paged_attention {tag}", dec,
+                             ref, BF16_ATOL, BF16_RTOL)
+                else:
+                    _compare(torch, f"decode_paged_attention {tag}", dec,
+                             ref, F32_ATOL)
+                check(bool((dec[[1, 4]] == 0).all()),
+                      f"decode {tag}: kv_lens==0 rows not 0")
+                n += 1
+            # NaN isolation: sequence 3 (rows 8..23) and decode row 5
+            poisoned = pages.clone()
+            poisoned[pt[3].long()] = float("nan")
+            mates = torch.cat([torch.arange(0, 8),
+                               torch.arange(24, q.shape[0])])
+            clean = ops.ragged_paged_attention(q, pages, kvl, pt, cu,
+                                               num_kv_heads=KV)
+            out = ops.ragged_paged_attention(q, poisoned, kvl, pt, cu,
+                                             num_kv_heads=KV)
+            check(bool(torch.equal(out[mates], clean[mates])),
+                  f"ragged {dt} G={G} hd={hd}: NaN page reached another "
+                  f"sequence")
+            check(bool(torch.isnan(out[8:24]).all()),
+                  f"ragged {dt} G={G} hd={hd}: poisoned sequence lost its "
+                  f"NaN")
+            poisoned = pd.clone()
+            poisoned[ptd[5].long()] = float("nan")
+            clean = ops.decode_paged_attention(qd, pd, kd, ptd,
+                                               num_kv_heads=KV)
+            out = ops.decode_paged_attention(qd, poisoned, kd, ptd,
+                                             num_kv_heads=KV)
+            keep = [0, 1, 2, 3, 4, 6, 7]
+            check(bool(torch.equal(out[keep], clean[keep]))
+                  and bool(torch.isnan(out[5]).all()),
+                  f"decode {dt} G={G} hd={hd}: NaN isolation broken")
+            del q, pages, qd, pd, poisoned
+    torch.cuda.synchronize()
+    log(f"check paged edges: {n} K6/K7 edge checks passed (hd 7-256, G "
+        f"1-71, ALiBi both forms), NaN isolation in both kernels")
+    return n
+
+
+def phase_tiny_config(torch, ops):
+    """``TransformerConfig.tiny()`` (hd 16, 4 query heads on 2 KV heads)
+    through its default kernels on the card: serving ``generate`` with
+    ``attn_impl="paged"`` (K6 and K7 must launch, every token in range)
+    and one ``put`` against ``"gather"``; training with ``attn_impl=
+    "auto"`` at S 128 (K1-K4 must launch: the flash kernels at hd 16
+    zero-padded to 64): one step's loss and gradient norm against
+    ``attn_impl="xla", fused_rmsnorm="off"``, then 4 steps whose loss
+    falls. → a summary dict."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import (CausalLM, InferenceEngineV2,
+                                     RaggedInferenceEngineConfig,
+                                     TransformerConfig)
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig.tiny()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    rng = np.random.default_rng(SEED + 41)
+    model = CausalLM(cfg, init_params(cfg, gen, torch.bfloat16, DEVICE))
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (5, 17, 40, 64)]
+    engine = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        max_ctx=cfg.max_seq_len), device=DEVICE)
+    ops.ragged_paged_attention.launches = 0
+    ops.decode_paged_attention.launches = 0
+    out = engine.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    serve = {"ragged_paged_attention": ops.ragged_paged_attention.launches,
+             "decode_paged_attention": ops.decode_paged_attention.launches}
+    for name, n in serve.items():
+        check(n > 0, f"tiny serving never launched {name}")
+    check(all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o)
+              for o in out), "tiny generate returned bad tokens")
+    logits = {}
+    for impl in ("paged", "gather"):
+        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            max_ctx=cfg.max_seq_len, attn_impl=impl), device=DEVICE)
+        logits[impl] = eng.put([0, 1], [prompts[2], prompts[3]]).float()
+        del eng
+    rel = float((logits["paged"] - logits["gather"]).norm()
+                / logits["gather"].norm())
+    log(f"tiny serving (hd 16, G 2): launches {serve}; paged vs gather put "
+        f"rel l2 {rel:.3e} (tol 5e-2)")
+    check(rel <= 5e-2, f"tiny paged vs gather logits differ: rel {rel}")
+    del engine, model
+
+    tcfg = dataclasses.replace(cfg, attn_impl="auto")
+    model = CausalLM(tcfg, init_params(tcfg, gen, torch.float32, DEVICE),
+                     trainable=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_micro_batch_size_per_gpu": 4,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "gradient_clipping": 1.0, "zero_optimization": {"stage": 0},
+        "bf16": {"enabled": True}}, device=DEVICE)
+    batch = train_batch_tokens(torch, engine, cfg.vocab_size, cfg.max_seq_len)
+    loss_k, norm_k = _loss_and_grad_norm(torch, engine, batch)
+    model.config = dataclasses.replace(tcfg, attn_impl="xla",
+                                       fused_rmsnorm="off")
+    loss_x, norm_x = _loss_and_grad_norm(torch, engine, batch)
+    model.config = tcfg
+    rel_loss = abs(loss_k - loss_x) / abs(loss_x)
+    rel_norm = abs(norm_k - norm_x) / abs(norm_x)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [float(engine.train_batch(batch)) for _ in range(4)]
+    torch.cuda.synchronize()
+    train = {name: fn.launches for name, fn in counters.items()}
+    log(f"tiny training (S {cfg.max_seq_len}, attn auto): losses {losses}; "
+        f"launches {train}; path check loss rel {rel_loss:.3e} (tol 1e-2), "
+        f"grad norm rel {rel_norm:.3e} (tol 5e-2)")
+    for name, n in train.items():
+        check(n > 0, f"tiny training never launched {name}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"tiny training loss did not fall: {losses}")
+    check(rel_loss <= 1e-2 and rel_norm <= 5e-2,
+          f"tiny path check: loss rel {rel_loss}, grad norm rel {rel_norm}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"serving_launches": serve, "paged_vs_gather_rel": rel,
+            "training_launches": train, "losses": losses,
+            "path_check": {"loss_rel": rel_loss, "grad_norm_rel": rel_norm}}
 
 
 def log_decode_split(ops, what, kv_lens, KV, NB, ps, split):
@@ -825,8 +1132,14 @@ def phase_timing(torch, ops, shapes, launches, errs):
     # K6 -------------------------------------------------------------- #
     q, pages, kvl, pt, cu = m["k6_inputs"]
     kw = dict(num_kv_heads=KV)
-    ms = cuda_ms(torch, lambda: ops.ragged_paged_attention(
-        q, pages, kvl, pt, cu, **kw), 20)
+
+    def k6():
+        return ops.ragged_paged_attention(q, pages, kvl, pt, cu, **kw)
+
+    ms = cuda_ms(torch, k6, 20)
+    dev = device_ms(torch, k6)
+    log(f"K6 main shapes: {ms:.4f} ms (events), {dev:.4f} ms (device, "
+        f"profiler)")
     plain = cuda_ms(torch, lambda: ops.ragged_paged_attention_reference(
         q, pages, kvl, pt, cu, **kw), 3, warmup=1)
     real = [(n, L, s) for s, (n, L) in
@@ -850,6 +1163,10 @@ def phase_timing(torch, ops, shapes, launches, errs):
         mask[i, 0, n:, 0] = True                     # padded query rows
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask), 20)
+    lib_dev = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    log(f"K6's library call (SDPA, boolean mask): {lib:.4f} ms (events), "
+        f"{lib_dev:.4f} ms (device)")
     nbytes, flops = ragged_work(m["k6_q_lens"], m["k6_kv_lens"],
                                 int(q.shape[0]), H, KV, hd, m["NB"], 2)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -862,7 +1179,8 @@ def phase_timing(torch, ops, shapes, launches, errs):
         "max_err": errs["ragged_paged_attention"],
         "atol": BF16_ATOL, "rtol": BF16_RTOL,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
+        "library_ms": lib, "device_ms": dev, "library_device_ms": lib_dev,
+        "fault_x": errs["ragged_paged_attention_fault_x"],
         "shape": {"q_lens": m["k6_q_lens"], "kv_lens": m["k6_kv_lens"],
                   "T": int(q.shape[0]), "H": H, "KV": KV, "hd": hd,
                   "ps": m["ps"], "dtype": "bf16"},
@@ -1049,6 +1367,7 @@ def check_rmsnorm_matmul_faults(torch, fcm, x, scale, w, eps):
     return worst
 
 
+PADDED_HDS = (16, 80, 96)          # head dims the wrappers zero-pad
 FLASH_TILE = 64                    # the bf16 backward's walked tile
 FLASH_FWD_TILE = 128               # the bf16 forward's walked key tile
 
@@ -1188,6 +1507,20 @@ def phase_train_kernel_checks(torch):
                 check_flash(torch, fa, f"bf16 S={S} causal={causal} hd={hd} "
                             f"G=4", q, k, v, do, causal, FLASH_BF16_TERMS,
                             BF16_RTOL, BF16_ATOL)
+    # head dims off 64/128: q, k, v, dO zero-padded to 64 or 128 by the
+    # wrappers, the scale from the true hd, O/dQ/dK/dV sliced back
+    for hd in PADDED_HDS:
+        for S in (100, 257):
+            for causal in (True, False):
+                for dtype, tag, terms, rtol, atol in (
+                        (torch.bfloat16, "bf16", FLASH_BF16_TERMS, BF16_RTOL,
+                         BF16_ATOL),
+                        (torch.float32, "f32", F32_TERMS, F32_RTOL, 1e-5)):
+                    q, k, v, do = flash_inputs(torch, gen, 2, S, 8, 2, hd,
+                                               dtype)
+                    check_flash(torch, fa, f"{tag} padded S={S} causal="
+                                f"{causal} hd={hd} G=4", q, k, v, do, causal,
+                                terms, rtol, atol)
     # the autograd Function (GQA repeat, delta, both backward kernels)
     # against autograd of the plain attention, float32
     from deepspeed_tpu_torch.models.transformer import _xla_attention
@@ -1232,6 +1565,19 @@ def phase_train_kernel_checks(torch):
              / math.sqrt(D)).to(dtype)
         check_rmsnorm_matmul(torch, fcm, f"{tag} M=100 D={D} F=1000", x,
                              scale, w, 1e-5)
+    # D and F off multiples of 8 (zero-padded by the wrapper, the mean over
+    # the true D) and an operand off 16-byte alignment (copied)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for Do, Fo, off in ((4093, 1003, 0), (61, 45, 0), (4096, 1000, 1)):
+            buf = torch.randn(100 * Do + 8, generator=gen,
+                              device=DEVICE).to(dtype)
+            x = buf[off:off + 100 * Do].view(100, Do)
+            scale = (1 + 0.1 * torch.randn(Do, generator=gen, device=DEVICE)
+                     ).to(dtype)
+            w = (torch.randn(Do, Fo, generator=gen, device=DEVICE)
+                 / math.sqrt(Do)).to(dtype)
+            check_rmsnorm_matmul(torch, fcm, f"{tag} M=100 D={Do} F={Fo} "
+                                 f"x offset {off}", x, scale, w, 1e-5)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return errs
@@ -2092,6 +2438,22 @@ def phase_sparse_kernel_checks(torch):
             check(bool((o_k[:, :, rows] == 0).all())
                   and bool((lse_k[:, :, rows] == -1e30).all()),
                   f"{tag}: the empty row is not O = 0, LSE = -1e30")
+    # head dims off 64/128, zero-padded by the wrappers
+    for i, (dtype, hd) in enumerate(itertools.product(
+            (torch.float32, torch.bfloat16), PADDED_HDS)):
+        name, kw = SPARSE_EDGE_LAYOUTS[i % len(SPARSE_EDGE_LAYOUTS)]
+        blk, H = 64, 4
+        S = 8 * blk - 5
+        layout = getattr(sc, name)(num_heads=H, block=blk,
+                                   **kw).make_layout(8 * blk)
+        tables = bs.prepare_layout(layout, blk, H, DEVICE)
+        q, k, v, do = sparse_inputs(torch, gen, 2, H, S, hd, dtype)
+        f32 = dtype == torch.float32
+        check_sparse(torch, bs, f"{'f32' if f32 else 'bf16'} padded "
+                     f"{name[:-14]} block={blk} hd={hd} S={S}", q, k, v, do,
+                     tables, SPARSE_F32_TERMS if f32 else FLASH_BF16_TERMS,
+                     F32_RTOL if f32 else BF16_RTOL,
+                     1e-5 if f32 else BF16_ATOL)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2518,11 +2880,7 @@ def phase_quant_kernel_checks(torch, ops):
         kv_lens=[129, 257, 712, 48, 0, 0, 1031, 0], dtype=torch.bfloat16,
         pad_tokens=6)
     kw = dict(num_kv_heads=KV)
-    _compare(torch, "ragged_paged_attention bf16 page 128",
-             ops.ragged_paged_attention(q, pages, kvl, pt, cu, **kw),
-             ops.ragged_paged_attention_reference(q, pages, kvl, pt, cu,
-                                                  **kw),
-             BF16_ATOL, BF16_RTOL)
+    check_ragged(torch, ops, "bf16 page 128", q, pages, kvl, pt, cu, KV)
     q, pages, kvl, pt, _ = paged_inputs(
         torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB, n_pages=S * NB + 1,
         q_lens=None, kv_lens=[160, 288, 1056, 33, 0, 128, 256, 2047],
@@ -3334,7 +3692,14 @@ def phase_world(torch, spec=None, target=None):
     ``_world_rank`` for a rehearsal). → the ranks' results."""
     from deepspeed_tpu_torch.launcher import run_local_world
 
+    global _flush_buf
+    _flush_buf = None                  # the L2 flush buffer, 256 MB
     _free(torch)
+    free, total = torch.cuda.mem_get_info()
+    log(f"before the world: this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card "
+        f"has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
     store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "deepspeed_tpu_torch", "build", "world")
     t0 = time.perf_counter()
@@ -3585,6 +3950,24 @@ def world_kernel_checks(torch):
                     torch, f"K11 {str(dtype)[6:]} [{m}, {k}] @ [{k}, {nn}] "
                     f"{shards} shards", got, ref,
                     matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
+    # K and N off multiples of 8 (zero-padded by the wrapper, N sliced
+    # back), and x off 16-byte alignment (copied)
+    for (m, k, nn, shards, off) in ((300, 75, 203, 3, 0), (64, 61, 45, 2, 0),
+                                    (128, 4096, 40, 2, 1)):
+        for dtype in (bf16, f32):
+            buf = torch.randn(m * k + 8, generator=gen,
+                              device=DEVICE).to(dtype)
+            xe = buf[off:off + m * k].view(m, k)
+            we = torch.randn(k, nn, generator=gen, device=DEVICE).to(dtype)
+            got = fcm.shard_major_matmul(xe, we, shards)
+            ref = fcm.matmul_reference(xe, we)
+            check(tuple(got.shape) == (m, nn), f"K11 odd widths: shape "
+                  f"{tuple(got.shape)}")
+            errs["shard_major_matmul"] = max(
+                errs["shard_major_matmul"], _compare_limit(
+                    torch, f"K11 {str(dtype)[6:]} [{m}, {k}] @ [{k}, {nn}] "
+                    f"{shards} shards, x offset {off}", got, ref,
+                    matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
     # K12: x against the two shards of the same weight on the int4 and
     # int8 wires (the prologue's operands at world 2), and an odd edge
     kk = K // WORLD_SIZE
@@ -3752,6 +4135,8 @@ def main():
         shapes = main_shapes()
         errs = phase_kernel_checks(torch, ops, shapes)
         phase_decode_split_checks(torch, ops, shapes)
+        paged_edges = phase_paged_edge_checks(torch, ops)
+        tiny = phase_tiny_config(torch, ops)
         train_errs = phase_train_kernel_checks(torch)
         opt_errs = phase_optimizer_kernel_checks(torch)
         phase_sparse_kernel_checks(torch)
@@ -3797,7 +4182,8 @@ def main():
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"serving": serving}))
+    log(json.dumps({"serving": serving, "paged_edge_checks": paged_edges,
+                    "tiny_config": tiny}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused_adam": fused_adam,
                     "other_fused_optimizers": others,

@@ -1,7 +1,8 @@
 // Asynchronous-copy and warpgroup helpers for the Hopper kernels of the
 // PyTorch port (sm_90a): cp.async, mbarriers, TMA tensor loads and their
-// host-side tensor maps, setmaxnreg, and the bf16 wgmma shapes the kernels
-// use. Used by decode_paged_attention.cu (cp.async), rmsnorm_matmul.cu,
+// host-side tensor maps, setmaxnreg, ldmatrix, and the bf16 wgmma shapes the
+// kernels use. Used by decode_paged_attention.cu and
+// ragged_paged_attention.cu (cp.async, ldmatrix), rmsnorm_matmul.cu,
 // collective_matmul.cu and, through flash_wgmma.cuh, the flash-attention
 // kernels (the rest); tile_mma.cuh's mma.sync helpers are separate.
 #pragma once
@@ -38,6 +39,34 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// `vb` bytes (16, 8, 4 or 2) from src to shared dst, or vb zero bytes when
+// !valid (src is then not read). 16, 8 and 4 go by cp.async (src-size 0
+// zero-fills); 2 is a plain load and store, visible after the next barrier.
+// dst and src must be aligned to vb.
+__device__ __forceinline__ void copy_vb(void* dst, const void* src, int vb,
+                                        bool valid) {
+  const int n = valid ? vb : 0;
+  if (vb == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else if (vb == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else if (vb == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    *static_cast<unsigned short*>(dst) =
+        valid ? *static_cast<const unsigned short*>(src) : (unsigned short)0;
+  }
 }
 
 // ---- mbarriers -----------------------------------------------------------
@@ -148,6 +177,15 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }

@@ -71,7 +71,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                       const T* __restrict__ w, T* __restrict__ y, int M,
-                      int D, int F, float eps) {
+                      int D, int F, float d_norm, float eps) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LDA = kBK + kPad<T>;
   constexpr int LDB = kBN + kPad<T>;
@@ -108,7 +108,7 @@ rmsnorm_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       }
     }
     ss = warp_sum(ss);
-    if (lane == 0) rs[r] = round_to<T>(rsqrtf(ss / (float)D + eps));
+    if (lane == 0) rs[r] = round_to<T>(rsqrtf(ss / d_norm + eps));
   }
 
   uint4 xreg[XV], wreg[WV];
@@ -214,7 +214,7 @@ constexpr int kRowsPerBlock = 8;                // rms_rows_kernel, a warp a row
 
 __global__ void __launch_bounds__(wg::kRowsPerBlock * 32)
 rms_rows_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ rows,
-                int M, int D, float eps) {
+                int M, int D, float d_norm, float eps) {
   const int row = blockIdx.x * wg::kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
@@ -228,7 +228,7 @@ rms_rows_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ rows,
   }
   ss = warp_sum(ss);
   if (lane == 0) {
-    rows[row] = round_to<__nv_bfloat16>(rsqrtf(ss / (float)D + eps));
+    rows[row] = round_to<__nv_bfloat16>(rsqrtf(ss / d_norm + eps));
   }
 }
 
@@ -365,8 +365,8 @@ rmsnorm_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 cudaError_t launch_bf16(const void* x, const void* scale, const void* w,
-                        void* y, float* rows, int M, int D, int F, float eps,
-                        cudaStream_t stream) {
+                        void* y, float* rows, int M, int D, int F,
+                        float d_norm, float eps, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   // encoded every call: the caching allocator reuses addresses
@@ -380,7 +380,7 @@ cudaError_t launch_bf16(const void* x, const void* scale, const void* w,
     return cudaErrorInvalidValue;
   rms_rows_kernel<<<(M + wg::kRowsPerBlock - 1) / wg::kRowsPerBlock,
                     wg::kRowsPerBlock * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), rows, M, D, eps);
+      static_cast<const __nv_bfloat16*>(x), rows, M, D, d_norm, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(rmsnorm_matmul_wgmma_kernel,
@@ -395,12 +395,13 @@ cudaError_t launch_bf16(const void* x, const void* scale, const void* w,
 }
 
 cudaError_t launch_f32(const void* x, const void* scale, const void* w,
-                       void* y, int M, int D, int F, float eps,
+                       void* y, int M, int D, int F, float d_norm, float eps,
                        cudaStream_t stream) {
   const int blocks = ((M + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
   rmsnorm_matmul_kernel<float><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(w), static_cast<float*>(y), M, D, F, eps);
+      static_cast<const float*>(w), static_cast<float*>(y), M, D, F, d_norm,
+      eps);
   return cudaGetLastError();
 }
 
@@ -409,19 +410,24 @@ cudaError_t launch_f32(const void* x, const void* scale, const void* w,
 
 // x [M, D], scale [D], w [D, F], y [M, F] (float32 or bfloat16, all one
 // type), rows float32 [M] (bfloat16's row normalisers; unused for float32).
+// d_norm: the row width the mean of x^2 divides by, D itself or, when the
+// caller zero-padded a narrower x, scale and w to D columns (rows), the
+// true width (the padded columns add +0 to the sums and the products).
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // the first cudaError_t (0 on success).
 extern "C" int rmsnorm_matmul_launch(const void* x, const void* scale,
                                      const void* w, void* y, void* rows,
-                                     int M, int D, int F, float eps,
-                                     int dtype, void* stream) {
+                                     int M, int D, int F, int d_norm,
+                                     float eps, int dtype, void* stream) {
   using namespace dstorch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || F <= 0) return 0;
-  if (D <= 0 || D % 8 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 0 || D % 8 || F % 8 || d_norm <= 0 || d_norm > D)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
     return launch_bf16(x, scale, w, y, static_cast<float*>(rows), M, D, F,
-                       eps, st);
-  if (dtype == kF32) return launch_f32(x, scale, w, y, M, D, F, eps, st);
+                       (float)d_norm, eps, st);
+  if (dtype == kF32)
+    return launch_f32(x, scale, w, y, M, D, F, (float)d_norm, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,5 @@
 from .ragged_ops import (
+    alibi_slopes,
     decode_attend_dense,
     decode_paged_attention,
     paged_kv_append,
@@ -6,6 +7,6 @@ from .ragged_ops import (
     ragged_paged_attention_reference,
 )
 
-__all__ = ["decode_attend_dense", "decode_paged_attention",
+__all__ = ["alibi_slopes", "decode_attend_dense", "decode_paged_attention",
            "paged_kv_append", "ragged_paged_attention",
            "ragged_paged_attention_reference"]

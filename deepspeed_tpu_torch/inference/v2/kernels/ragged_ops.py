@@ -18,6 +18,13 @@ tensor it runs the plain PyTorch version beside it
 which the CPU tests hold against the JAX kernels. Each wrapper counts its
 kernel launches in a plain integer attribute, ``<wrapper>.launches``.
 
+Both kernels take any head dim up to 256 (built for padded widths 64, 128
+and 256, the true hd at run time: the page pool is never copied) and any
+query group G = H / KV, up to MQA; a larger head dim raises ``ValueError``.
+Both take ALiBi as the reference does: ``alibi`` is a sequence of H
+per-query-head slopes (:func:`alibi_slopes` gives the standard ones) and
+``alibi_scaled`` picks Falcon's bias over Bloom's.
+
 :func:`paged_kv_append` is the KV-cache write, an XLA scatter in the JAX
 package, here an in-place ``index_put_``.
 """
@@ -35,20 +42,114 @@ from ....ops.op_builder.builder import (DTYPE_CODES, check_launch,
                                         kernel_function)
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_MAX_G = 8
+#: the widest head dim the kernels take (padded widths 64, 128, 256)
+MAX_HEAD_DIM = 256
+_PADDED_HEAD_DIMS = (64, 128, 256)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "ragged_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "decode_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    # q, pages, kv_lens, page_table, cu_q_lens, slopes, out; T, H, KV, hd,
+    # ps, S, NB; scale; alibi, vb, dtype; stream
+    "ragged_paged_attention": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    # q, pages, kv_lens, page_table, slopes, out, ws; S, H, KV, hd, ps, NB;
+    # scale; alibi, vb, dtype; stream
+    "decode_paged_attention": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
 }
+#: the kernels' ALiBi modes (``enum AlibiMode`` in the sources)
+_ALIBI_MODES = {None: 0, False: 1, True: 2}
 
 
 def _launcher(name: str):
     """The ``<name>_launch`` C function of ``csrc/<name>.cu``, built on
     first use."""
     return kernel_function(name, f"{name}_launch", _ARGTYPES[name])
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """The standard ALiBi slopes of ``num_heads`` heads, float32 ``[H]``
+    (Bloom's ``build_alibi_tensor``; the port's copy of the JAX package's
+    ``models/families.py alibi_slopes``)."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** (i + 1) for i in range(closest)]
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** (2 * i + 1)
+                   for i in range(num_heads - closest)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def _alibi_values(alibi, H: int):
+    """``alibi`` (a sequence of per-query-head slopes, or None) as a tuple
+    of float32 values; raises unless there are H of them."""
+    if alibi is None:
+        return None
+    vals = tuple(torch.as_tensor(alibi, dtype=torch.float32,
+                                 device="cpu").reshape(-1).tolist())
+    if len(vals) != H:
+        raise ValueError(f"alibi slopes must be per query head: {len(vals)} "
+                         f"slopes for {H} heads")
+    return vals
+
+
+_SLOPE_CACHE = {}
+
+
+def _slope_tensor(vals, device):
+    """The float32 ``[H]`` slopes on ``device``, cached by value and device
+    (no host-to-device copy on each call of the serving loop)."""
+    key = (vals, str(device))
+    t = _SLOPE_CACHE.get(key)
+    if t is None:
+        t = torch.tensor(vals, dtype=torch.float32, device=device)
+        _SLOPE_CACHE[key] = t
+    return t
+
+
+def alibi_bias(slopes: torch.Tensor, k_pos: torch.Tensor, scale: float,
+               scaled: bool) -> torch.Tensor:
+    """The ALiBi bias ``[H, C]`` of the reference kernels, added to the
+    scaled scores before the mask: Bloom ``slope·k_pos`` in float32;
+    Falcon (``scaled``) ``bf16(slope)·bf16(k_pos)·scale``, the product of
+    the two bf16 values exact in float32 and not rounded to bf16 again.
+    That is what XLA computes for the reference's ``(slope.astype(bf16) *
+    k_pos.astype(bf16)).astype(f32) * scale`` under ``jit`` (the Pallas
+    kernels, and the JAX engine's jitted ``decode_attend_dense``): its
+    simplifier drops the bf16 round trip of the product. An eager call of
+    the JAX ``decode_attend_dense`` rounds the product once more."""
+    if scaled:
+        prod = (slopes.to(torch.bfloat16).float()[:, None]
+                * k_pos.to(torch.bfloat16).float()[None, :])
+        return prod * scale
+    return slopes[:, None] * k_pos.float()[None, :]
+
+
+def biased_scores(raw: torch.Tensor, scale: float,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """``raw·scale + bias`` rounded once, as one fused multiply-add (XLA
+    contracts the reference's ``dot * scale + bias`` so, and the kernels
+    use ``fmaf``): float64 holds the float32 product exactly."""
+    return (raw.double() * scale + bias.double()).float()
+
+
+def padded_head_dim(hd: int) -> int:
+    """The padded width the paged-attention kernels are built for (64, 128
+    or 256) that holds ``hd``; raises past 256."""
+    for w in _PADDED_HEAD_DIMS:
+        if hd <= w:
+            return w
+    raise ValueError(f"paged attention kernels take head_dim <= "
+                     f"{MAX_HEAD_DIM}, got {hd} (ROADMAP Queue 3)")
+
+
+def copy_width(hd: int, elem: int, *tensors: torch.Tensor) -> int:
+    """Bytes a copy of the kernels' row loads (16, 8, 4 or 2): the widest
+    that divides a row of ``hd`` elements of ``elem`` bytes and every base
+    pointer."""
+    vb = 16
+    while vb > elem and ((hd * elem) % vb
+                         or any(t.data_ptr() % vb for t in tensors)):
+        vb //= 2
+    return vb
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,10 +188,9 @@ def _check_shapes(q, kv_pages, kv_lens, page_table, num_kv_heads,
     return H, KV, H // KV, hd, ps, S, NB
 
 
-def _check_kernel_inputs(name, q, kv_pages, ints, G, hd):
+def _check_kernel_inputs(name, q, kv_pages, ints, hd):
     """What the CUDA kernels take: one CUDA device, float32 or bfloat16 q
-    and pool of one dtype, contiguous int32 metadata, hd in {64, 128},
-    G <= 8, 16-byte aligned q and pool."""
+    and pool of one dtype, contiguous int32 metadata, hd <= 256."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: runs on CUDA or CPU tensors, not {dev}")
@@ -107,15 +207,9 @@ def _check_kernel_inputs(name, q, kv_pages, ints, G, hd):
     for t in (q, kv_pages, *ints):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel supports head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {hd}")
-    if G > _KERNEL_MAX_G:
-        raise ValueError(f"{name}: the kernel supports at most "
-                         f"{_KERNEL_MAX_G} query heads per kv head, got {G}")
-    for t in (q, kv_pages):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: q and kv_pages must be 16-byte aligned")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {hd} (ROADMAP Queue 3)")
 
 
 # --------------------------------------------------------------------- #
@@ -124,7 +218,8 @@ def _check_kernel_inputs(name, q, kv_pages, ints, G, hd):
 def ragged_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            kv_lens: torch.Tensor, page_table: torch.Tensor,
                            cu_q_lens: torch.Tensor, *, num_kv_heads: int,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, alibi=None,
+                           alibi_scaled: bool = False) -> torch.Tensor:
     """Ragged causal attention over the paged KV pool, flat-token layout.
 
     Replaces ``deepspeed_tpu/inference/v2/kernels/ragged_ops.py``
@@ -132,31 +227,44 @@ def ragged_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     ``[cu_q_lens[s], cu_q_lens[s+1])`` of ``q`` and attend causally to its
     ``kv_lens[s]`` cached positions (seen + in flight), read through
     ``page_table[s]``; flat rows no sequence owns are padding and give 0.
+    ``alibi``: H per-query-head slopes (or None); the bias ``slope·k_pos``
+    (``alibi_scaled``: Falcon's ``bf16(slope)·bf16(k_pos)·scale``,
+    :func:`alibi_bias`) is added to the scaled scores before the mask.
     → ``[T, H, hd]`` in q's dtype.
 
-    On CUDA: ``csrc/ragged_paged_attention.cu``, one block per (query tile
-    of one sequence, KV head). Bound on the H100: for long prompts the
-    operations, ``4·H·hd·Σ causal pairs`` against 989 TFLOP/s in bf16;
-    for short ones the bytes of q, out and each sequence's K/V context.
-    The simple design computes on CUDA cores without tensor cores or
-    asynchronous copies (see the source's notes).
+    On CUDA: ``csrc/ragged_paged_attention.cu``, one CTA per (tile of up
+    to 64 rows, tokens x a slice of the query group, of one sequence, KV
+    head). bf16: mma.sync tensor-core products, two warp groups walking
+    alternate 64-position chunks, each fed by a two-stage cp.async ring
+    through the page table, a base-2 softmax, the mask on diagonal and
+    tail chunks only; deterministic. float32: the exact CUDA-core kernel.
+    Bound
+    on the H100: for long prompts the operations, ``4·H·hd·Σ causal
+    pairs`` against 989 TFLOP/s in bf16; for short ones the bytes of q,
+    out and each sequence's K/V context.
     """
     H, KV, G, hd, ps, S, NB = _check_shapes(q, kv_pages, kv_lens, page_table,
                                             num_kv_heads, cu_q_lens)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    slopes = _alibi_values(alibi, H)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, kv_pages, kv_lens, page_table, cu_q_lens,
-            num_kv_heads=num_kv_heads, scale=scale)
+            num_kv_heads=num_kv_heads, scale=scale, alibi=slopes,
+            alibi_scaled=alibi_scaled)
     ints = (kv_lens, page_table, cu_q_lens)
-    _check_kernel_inputs("ragged_paged_attention", q, kv_pages, ints, G, hd)
+    _check_kernel_inputs("ragged_paged_attention", q, kv_pages, ints, hd)
     out = torch.zeros_like(q)
+    slope_t = None if slopes is None else _slope_tensor(slopes, q.device)
     err = _launcher("ragged_paged_attention")(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_table.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
+        page_table.data_ptr(), cu_q_lens.data_ptr(),
+        None if slope_t is None else slope_t.data_ptr(), out.data_ptr(),
         q.shape[0], H, KV, hd, ps, S, NB, float(scale),
-        DTYPE_CODES[q.dtype], get_accelerator().current_stream(q.device).cuda_stream)
+        _ALIBI_MODES[None if slopes is None else bool(alibi_scaled)],
+        copy_width(hd, q.element_size(), q, kv_pages), DTYPE_CODES[q.dtype],
+        get_accelerator().current_stream(q.device).cuda_stream)
     check_launch("ragged_paged_attention", err)
     ragged_paged_attention.launches += 1
     return out
@@ -167,16 +275,21 @@ ragged_paged_attention.launches = 0
 
 def ragged_paged_attention_reference(q, kv_pages, kv_lens, page_table,
                                      cu_q_lens, *, num_kv_heads: int,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None,
+                                     alibi=None, alibi_scaled: bool = False):
     """Plain PyTorch version of :func:`ragged_paged_attention`: per
     sequence, gather its ``kv_lens`` context rows from the pages and run
-    masked softmax attention in float32. Columns past the context are never
+    masked softmax attention in float32, the ALiBi bias (if any) added to
+    the scaled scores before the mask. Columns past the context are never
     gathered, so a NaN in another sequence's or an unused page cannot
     reach a row. Reads ``cu_q_lens``/``kv_lens`` on the host."""
     H, KV, G, hd, ps, S, _ = _check_shapes(q, kv_pages, kv_lens, page_table,
                                            num_kv_heads, cu_q_lens)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    slopes = _alibi_values(alibi, H)
+    if slopes is not None:
+        slopes = torch.tensor(slopes, dtype=torch.float32, device=q.device)
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     cu = cu_q_lens.tolist()
     kvls = kv_lens.tolist()
@@ -190,9 +303,15 @@ def ragged_paged_attention_reference(q, kv_pages, kv_lens, page_table,
             n_pages * ps, 2 * KV, hd)[:kvl].float()
         k = ctx[:, :KV].repeat_interleave(G, dim=1)             # [kvl, H, hd]
         v = ctx[:, KV:].repeat_interleave(G, dim=1)
-        scores = torch.einsum("thd,chd->htc", q[q0:q1].float(), k) * scale
+        raw = torch.einsum("thd,chd->htc", q[q0:q1].float(), k)
+        k_pos = torch.arange(kvl, device=q.device)
+        if slopes is None:
+            scores = raw * scale
+        else:
+            scores = biased_scores(raw, scale, alibi_bias(
+                slopes, k_pos, scale, alibi_scaled)[:, None, :])
         q_pos = kvl - n + torch.arange(n, device=q.device)
-        mask = torch.arange(kvl, device=q.device)[None, :] <= q_pos[:, None]
+        mask = k_pos[None, :] <= q_pos[:, None]
         scores = torch.where(mask[None], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out[q0:q1] = torch.einsum("htc,chd->thd", probs, v)
@@ -205,10 +324,12 @@ def ragged_paged_attention_reference(q, kv_pages, kv_lens, page_table,
 def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            kv_lens: torch.Tensor, page_table: torch.Tensor, *,
                            num_kv_heads: int,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, alibi=None,
+                           alibi_scaled: bool = False) -> torch.Tensor:
     """Paged attention for pure-decode batches: ONE query token per
     sequence. q ``[S, H, hd]``; row s attends to positions
     ``< kv_lens[s]``; rows with ``kv_lens == 0`` are padding and give 0.
+    ``alibi``/``alibi_scaled`` as :func:`ragged_paged_attention`.
 
     Replaces ``deepspeed_tpu/inference/v2/kernels/ragged_ops.py``
     ``_decode_paged_kernel``. Bound on the H100: bytes,
@@ -216,14 +337,15 @@ def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     ``csrc/decode_paged_attention.cu``, split-context (flash-decoding) in
     two launches counted as one call: pass 1 runs one block per (sequence,
     KV head, split of 64 context positions), each with all its K/V row
-    copies in flight before it computes, and writes float32 partial softmax
-    states to a workspace this wrapper allocates; pass 2 merges a
-    sequence's live splits in split order. The split count
-    (:func:`decode_split_count`) comes from the page table's width, so the
-    wrapper never reads ``kv_lens`` on the host, and the first pass's grid
-    and workspace grow with that width (the engine's ``max_ctx``), not with
-    the live context; every sum's order depends on context positions alone,
-    so the output is bit-identical at every page size.
+    copies in flight before it computes, its query heads in slices of 8,
+    and writes float32 partial softmax states to a workspace this wrapper
+    allocates; pass 2 merges a sequence's live splits in split order. The
+    split count (:func:`decode_split_count`) comes from the page table's
+    width, so the wrapper never reads ``kv_lens`` on the host, and the
+    first pass's grid and workspace grow with that width (the engine's
+    ``max_ctx``), not with the live context; every sum's order depends on
+    context positions alone, so the output is bit-identical at every page
+    size.
     """
     H, KV, G, hd, ps, S, NB = _check_shapes(q, kv_pages, kv_lens, page_table,
                                             num_kv_heads)
@@ -231,18 +353,25 @@ def decode_paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         raise ValueError(f"q has {q.shape[0]} rows for {S} sequences")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    slopes = _alibi_values(alibi, H)
     if q.device.type == "cpu":
         return decode_attend_dense(q, kv_pages, kv_lens, page_table,
-                                   num_kv_heads=num_kv_heads, scale=scale)
+                                   num_kv_heads=num_kv_heads, scale=scale,
+                                   alibi=slopes, alibi_scaled=alibi_scaled)
     _check_kernel_inputs("decode_paged_attention", q, kv_pages,
-                         (kv_lens, page_table), G, hd)
+                         (kv_lens, page_table), hd)
     out = torch.empty_like(q)
-    ws = torch.empty(S, H, decode_split_count(NB, ps), hd + 2,
-                     dtype=torch.float32, device=q.device)
+    ws = torch.empty(S, H, decode_split_count(NB, ps),
+                     padded_head_dim(hd) + 2, dtype=torch.float32,
+                     device=q.device)
+    slope_t = None if slopes is None else _slope_tensor(slopes, q.device)
     err = _launcher("decode_paged_attention")(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-        page_table.data_ptr(), out.data_ptr(), ws.data_ptr(), S, H, KV, hd,
-        ps, NB, float(scale), DTYPE_CODES[q.dtype],
+        page_table.data_ptr(),
+        None if slope_t is None else slope_t.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), S, H, KV, hd, ps, NB, float(scale),
+        _ALIBI_MODES[None if slopes is None else bool(alibi_scaled)],
+        copy_width(hd, q.element_size(), q, kv_pages), DTYPE_CODES[q.dtype],
         get_accelerator().current_stream(q.device).cuda_stream)
     check_launch("decode_paged_attention", err)
     decode_paged_attention.launches += 1
@@ -253,11 +382,13 @@ decode_paged_attention.launches = 0
 
 
 def decode_attend_dense(q, kv_pages, kv_lens, page_table, *,
-                        num_kv_heads: int, scale: Optional[float] = None):
+                        num_kv_heads: int, scale: Optional[float] = None,
+                        alibi=None, alibi_scaled: bool = False):
     """Plain PyTorch version of :func:`decode_paged_attention` (the JAX
     package's ``decode_attend_dense``): gather every sequence's whole page
     table, zero V past ``kv_lens`` before the product (select before
-    multiply), masked softmax in float32; padding rows give 0."""
+    multiply), the ALiBi bias (if any) added to the scaled scores, masked
+    softmax in float32; padding rows give 0."""
     S, H, hd = q.shape
     _, ps, _, _ = kv_pages.shape
     KV = num_kv_heads
@@ -266,6 +397,7 @@ def decode_attend_dense(q, kv_pages, kv_lens, page_table, *,
     C = NB * ps
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    slopes = _alibi_values(alibi, H)
     ctx_pos = torch.arange(C, device=q.device)
     pg = page_table[:, ctx_pos // ps].long()                    # [S, C]
     off = (ctx_pos % ps)[None, :].expand(S, C)
@@ -277,7 +409,13 @@ def decode_attend_dense(q, kv_pages, kv_lens, page_table, *,
     if G != 1:
         k_ctx = k_ctx.repeat_interleave(G, dim=2)
         v_ctx = v_ctx.repeat_interleave(G, dim=2)
-    scores = torch.einsum("shd,schd->shc", q.float(), k_ctx.float()) * scale
+    raw = torch.einsum("shd,schd->shc", q.float(), k_ctx.float())
+    if slopes is None:
+        scores = raw * scale
+    else:
+        slopes = torch.tensor(slopes, dtype=torch.float32, device=q.device)
+        scores = biased_scores(raw, scale, alibi_bias(
+            slopes, ctx_pos, scale, alibi_scaled)[None])
     mask = valid[:, None, :]
     scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)

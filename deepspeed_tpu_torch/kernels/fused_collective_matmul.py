@@ -48,7 +48,8 @@ from ..ops.op_builder.builder import DTYPE_CODES, check_launch, kernel_function
 from ..ops.quantizer.quantizer import _ftz, _unpack_wire, quant_pack_wire
 from ..runtime.comm.fused_wire import _exchange_mean, group_count, inv_n
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+# x, scale, w, y, rows; M, D, F, d_norm; eps; dtype; stream
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = "collective_matmul"
@@ -94,6 +95,53 @@ def _largest_divisor(n: int, cap: int) -> int:
     return 1
 
 
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def zero_pad(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of each dim to ``sizes`` (a fresh
+    allocation), or ``t`` itself when it has those sizes already."""
+    if tuple(t.shape) == tuple(sizes):
+        return t
+    pad = []
+    for n, want in reversed(list(zip(t.shape, sizes))):
+        pad += [0, want - n]
+    return torch.nn.functional.pad(t, pad)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when its data starts on a 16-byte boundary (TMA's rule), else
+    a fresh copy (the allocator aligns every allocation)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def padded_matmul_operands(x: torch.Tensor, w: torch.Tensor):
+    """K11's operands at the widths its kernel takes: ``x [M, K]`` and
+    ``w [K, N]`` with K and N zero-padded to multiples of 8 (fresh copies
+    where a width moves; the padded K adds +0 products, the padded N
+    columns are sliced off the product). → (x, w, N)."""
+    M, K = x.shape
+    N = w.shape[1]
+    Kp, Np = _round8(K), _round8(N)
+    return zero_pad(x, M, Kp), zero_pad(w, Kp, Np), N
+
+
+def padded_rmsnorm_operands(x2: torch.Tensor, scale: torch.Tensor,
+                            w: torch.Tensor):
+    """K4's operands at the widths its kernel takes: ``x2 [M, D]``,
+    ``scale [D]``, ``w [D, F]`` with D and F zero-padded to multiples of 8
+    (fresh copies where a width moves). The padded columns of x add +0 to
+    each row's sum of squares, whose mean the kernel still takes over the
+    true D (its ``d_norm``), and +0 products; the padded F columns are
+    sliced off. → (x2, scale, w, D, F)."""
+    M, D = x2.shape
+    F = w.shape[1]
+    Dp, Fp = _round8(D), _round8(F)
+    return (zero_pad(x2, M, Dp), zero_pad(scale, Dp), zero_pad(w, Dp, Fp),
+            D, F)
+
+
 def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -113,8 +161,11 @@ def shard_major_matmul(x: torch.Tensor, w: torch.Tensor, n_shards: int
     ``[s·M/n, (s+1)·M/n)`` complete before any tile of shard s+1 starts,
     so the trailing reduce-scatter can take each shard as it completes.
     ``M`` must divide by ``n_shards``. In bf16 the kernel is TMA + wgmma
-    on 128 x 256 tiles (float32: CUDA cores, 128 x 128); K and N must be
-    multiples of 8 and both operands 16-byte aligned (TMA's rules).
+    on 128 x 256 tiles (float32: CUDA cores, 128 x 128). TMA takes K and N
+    multiples of 8 and 16-byte aligned operands: other widths are
+    zero-padded to the next multiple of 8 (:func:`padded_matmul_operands`,
+    a copy of each padded operand; the extra columns are sliced off the
+    product), and an unaligned operand is copied.
 
     Replaces ``_matmul_kernel`` (K11). Bound on the H100: operations,
     2·M·K·N at 989 TFLOP/s in bf16 (67 TFLOP/s in float32)."""
@@ -131,22 +182,18 @@ def shard_major_matmul(x: torch.Tensor, w: torch.Tensor, n_shards: int
     dtype = torch.promote_types(x.dtype, w.dtype)
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: float32 or bfloat16, not {dtype}")
-    N = w.shape[1]
-    if K % 8 or N % 8:
-        raise ValueError(f"{name}: the kernel needs K and N multiples of 8, "
-                         f"got {K}, {N}")
-    x = x.to(dtype).contiguous()
-    w = w.to(dtype).contiguous()
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: x and w must be 16-byte aligned")
-    y = torch.empty(M, N, dtype=dtype, device=x.device)
+    x, w, N = padded_matmul_operands(x.to(dtype).contiguous(),
+                                     w.to(dtype).contiguous())
+    x, w = aligned16(x), aligned16(w)
+    Kp, Np = w.shape
+    y = torch.empty(M, Np, dtype=dtype, device=x.device)
     err = kernel_function(_LIB, "shard_major_matmul_launch", _MATMUL_ARGS)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N, n_shards,
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), M, Kp, Np, n_shards,
         DTYPE_CODES[dtype],
         get_accelerator().current_stream(x.device).cuda_stream)
     check_launch(name, err)
     shard_major_matmul.launches += 1
-    return y
+    return y if Np == N else y[:, :N].contiguous()
 
 
 shard_major_matmul.launches = 0
@@ -287,29 +334,35 @@ def all_gather_matmul(x: torch.Tensor, w_shard: torch.Tensor, axes,
     return shard_major_matmul(x, w_full, 1)
 
 
-def rms_normaliser(x: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_normaliser(x: torch.Tensor, eps: float,
+                   d_norm: Optional[int] = None) -> torch.Tensor:
     """Plain version of K4's bfloat16 pre-pass (``rms_rows_kernel``): each
     row's ``rsqrt(mean(x²) + eps)`` in float32, cast to x's dtype, as
-    ``models/transformer.py rms_norm`` computes it. → ``[..., 1]``."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    ``models/transformer.py rms_norm`` computes it; with ``d_norm`` (x
+    zero-padded from d_norm columns) the mean is the sum over d_norm.
+    → ``[..., 1]``."""
+    sq = x.float().square()
+    var = (sq.mean(dim=-1, keepdim=True) if d_norm is None
+           else sq.sum(dim=-1, keepdim=True) / d_norm)
     return torch.rsqrt(var + eps).to(x.dtype)
 
 
-def _normalize(x: torch.Tensor, scale: torch.Tensor,
-               eps: float) -> torch.Tensor:
+def _normalize(x: torch.Tensor, scale: torch.Tensor, eps: float,
+               d_norm: Optional[int] = None) -> torch.Tensor:
     """``models/transformer.py rms_norm``: the variance in float32, the
     normaliser cast to x's dtype before the products."""
-    return (x * rms_normaliser(x, eps)) * scale
+    return (x * rms_normaliser(x, eps, d_norm)) * scale
 
 
 def rmsnorm_matmul_reference(x: torch.Tensor, scale: torch.Tensor,
-                             w: torch.Tensor, eps: float) -> torch.Tensor:
+                             w: torch.Tensor, eps: float,
+                             d_norm: Optional[int] = None) -> torch.Tensor:
     """The unfused composition (``rms_norm`` then the projection) the
-    kernel is held against.
+    kernel is held against (``d_norm``: see :func:`rms_normaliser`).
 
     Replaces ``_rmsnorm_matmul_kernel`` (K4) with
     ``csrc/rmsnorm_matmul.cu``."""
-    return matmul_reference(_normalize(x, scale, eps), w)
+    return matmul_reference(_normalize(x, scale, eps, d_norm), w)
 
 
 def rmsnorm_matmul_fwd(x2: torch.Tensor, scale: torch.Tensor,
@@ -325,7 +378,11 @@ def rmsnorm_matmul_fwd(x2: torch.Tensor, scale: torch.Tensor,
     shared-memory ring runs wgmma on 128 x 256 output tiles, normalising
     each raw x fragment in registers on its way to the tensor cores.
     float32 keeps an exact CUDA-core kernel (wgmma has no full-float32
-    mode)."""
+    mode). TMA takes D and F multiples of 8 and 16-byte aligned operands:
+    other widths are zero-padded to the next multiple of 8
+    (:func:`padded_rmsnorm_operands`, a copy of each padded operand; the
+    normaliser's mean stays over the true D, the extra columns are sliced
+    off), and an unaligned operand is copied."""
     if x2.device.type == "cpu":
         return rmsnorm_matmul_reference(x2, scale, w, eps)
     M, D = x2.shape
@@ -343,22 +400,19 @@ def rmsnorm_matmul_fwd(x2: torch.Tensor, scale: torch.Tensor,
     if tuple(scale.shape) != (D,) or w.dim() != 2 or w.shape[0] != D:
         raise ValueError(f"{name}: x [M, {D}], scale [{D}], w [{D}, F]; got "
                          f"{tuple(scale.shape)}, {tuple(w.shape)}")
-    if D % 8 or F % 8:
-        raise ValueError(f"{name}: the kernel needs D and F multiples of 8, "
-                         f"got {D}, {F}")
-    for t in (x2, scale, w):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
-                             f"aligned")
-    y = torch.empty(M, F, dtype=x2.dtype, device=x2.device)
+    x2, scale, w, _, _ = padded_rmsnorm_operands(
+        x2.contiguous(), scale.contiguous(), w.contiguous())
+    x2, scale, w = aligned16(x2), aligned16(scale), aligned16(w)
+    Dp, Fp = w.shape
+    y = torch.empty(M, Fp, dtype=x2.dtype, device=x2.device)
     rows = torch.empty(M, dtype=torch.float32, device=x2.device)
     err = kernel_function(name, "rmsnorm_matmul_launch", _ARGS)(
         x2.data_ptr(), scale.data_ptr(), w.data_ptr(), y.data_ptr(),
-        rows.data_ptr(), M, D, F, float(eps), DTYPE_CODES[x2.dtype],
+        rows.data_ptr(), M, Dp, Fp, D, float(eps), DTYPE_CODES[x2.dtype],
         get_accelerator().current_stream(x2.device).cuda_stream)
     check_launch(name, err)
     rmsnorm_matmul_fwd.launches += 1
-    return y
+    return y if Fp == F else y[:, :F].contiguous()
 
 
 rmsnorm_matmul_fwd.launches = 0

@@ -37,6 +37,11 @@ mask inside a block (``attention="unidirectional"`` is a block-level
 lower triangle). Inputs are read at their length S: the kernels mask the
 partial last block instead of padding copies of q, k and v.
 
+The kernels are built for head dims 64 and 128: a narrower hd is
+zero-padded to the next of the two (:func:`run_padded`, shared with flash
+attention), with the scale from the true hd and O, dQ, dK and dV sliced
+back; hd above 128 raises.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (``*_reference``):
 float32 math that loops over q-blocks (k-blocks for dK/dV) and gathers
@@ -55,6 +60,7 @@ import torch
 
 from ...accelerator import get_accelerator
 from ..op_builder.builder import DTYPE_CODES, check_launch, kernel_function
+from ..transformer.flash_attention import run_padded
 
 _NEG_INF = -1e30
 _KERNEL_BLOCKS = (16, 32, 64, 128)
@@ -391,6 +397,10 @@ def block_sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return block_sparse_fwd_reference(q, k, v, tables, scale)
+    return run_padded(_fwd_launch, (q, k, v), 1, tables, scale)
+
+
+def _fwd_launch(q, k, v, tables, scale):
     _check_kernel_inputs("block_sparse_fwd", (q, k, v), tables)
     _check_layout("block_sparse_fwd", q, tables)
     B, H, S, hd = q.shape
@@ -422,6 +432,10 @@ def block_sparse_fwd_nolse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return block_sparse_fwd_reference(q, k, v, tables, scale)[0]
+    return run_padded(_fwd_nolse_launch, (q, k, v), 1, tables, scale)
+
+
+def _fwd_nolse_launch(q, k, v, tables, scale):
     _check_kernel_inputs("block_sparse_fwd_nolse", (q, k, v), tables)
     _check_layout("block_sparse_fwd_nolse", q, tables)
     B, H, S, hd = q.shape
@@ -453,6 +467,11 @@ def block_sparse_bwd_dq(q, k, v, do, lse, delta, tables: BlockSparseTables,
     if q.device.type == "cpu":
         return block_sparse_bwd_dq_reference(q, k, v, do, lse, delta, tables,
                                              scale)
+    return run_padded(_dq_launch, (q, k, v, do), 1, lse, delta, tables,
+                      scale)
+
+
+def _dq_launch(q, k, v, do, lse, delta, tables, scale):
     _check_kernel_inputs("block_sparse_bwd_dq", (q, k, v, do), tables,
                          (lse, delta))
     _check_layout("block_sparse_bwd_dq", q, tables)
@@ -489,6 +508,11 @@ def block_sparse_bwd_dkv(q, k, v, do, lse, delta, tables: BlockSparseTables,
     if q.device.type == "cpu":
         return block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta, tables,
                                               scale)
+    return run_padded(_dkv_launch, (q, k, v, do), 2, lse, delta, tables,
+                      scale)
+
+
+def _dkv_launch(q, k, v, do, lse, delta, tables, scale):
     _check_kernel_inputs("block_sparse_bwd_dkv", (q, k, v, do), tables,
                          (lse, delta))
     _check_layout("block_sparse_bwd_dkv", q, tables)

@@ -27,17 +27,22 @@ which the CPU tests hold against the JAX kernels in interpret mode. The
 backward's plain versions are the recompute math of ``_bwd`` (P from the
 LSE), not autograd of the plain forward. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``. The CUDA kernels choose their own
-tiles (bf16, TMA + wgmma: a block owns 128 rows, two warpgroups of 64,
-and walks tiles of 64 on the other side; float32: 64 x 64 on the CUDA
-cores); the model's ``flash_block_q``/``flash_block_k`` do not steer them.
+tiles (bf16, TMA + wgmma: a block owns 128 rows, two warpgroups of 64;
+the forward walks 128-key tiles, the backward 64-row tiles; float32:
+64 x 64 on the CUDA cores); the model's ``flash_block_q``/``flash_block_k``
+do not steer them. They are built for head dims 64 and 128: a narrower hd
+is zero-padded to the next of the two (:func:`run_padded`; q, k, v and dO
+are per-call activations, so the copies are cheap), with the scale from
+the true hd and O, dQ, dK and dV sliced back; hd above 128 raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...accelerator import get_accelerator
 from ..op_builder.builder import DTYPE_CODES, check_launch, kernel_function
@@ -85,6 +90,38 @@ def _check_kernel_inputs(name, tensors, stats=()):
                 or tuple(t.shape) != (B, H, S) or not t.is_contiguous()):
             raise ValueError(f"{name}: lse/delta must be contiguous float32 "
                              f"[{B}, {H}, {S}] on {dev}")
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim the CUDA kernels run ``hd`` at: 64 or 128, the next
+    of the two at or above it; raises above 128 (a 256-wide tile design
+    does not fit K1's ring: ROADMAP Queue 3.1). The block-sparse kernels
+    (K16-K19) share the rule."""
+    for width in _KERNEL_HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"the attention kernels take head_dim <= "
+                     f"{_KERNEL_HEAD_DIMS[-1]}, got {hd}: head dims in "
+                     f"(128, 256] need a tile design of their own (ROADMAP "
+                     f"Queue 3.1)")
+
+
+def run_padded(fn: Callable, tensors, n_sliced: int, *rest):
+    """``fn(*tensors, *rest)`` with each ``[..., hd]`` tensor of
+    ``tensors`` zero-padded to :func:`kernel_head_dim` (a fresh copy; the
+    padded columns add +0 to every product and to δ) and the first
+    ``n_sliced`` outputs sliced back to hd; the row statistics in ``rest``
+    and the other outputs pass unchanged. ``rest`` carries the scale,
+    which the caller takes from the true hd."""
+    hd = tensors[0].shape[-1]
+    width = kernel_head_dim(hd)
+    if width == hd:
+        return fn(*tensors, *rest)
+    out = fn(*(F.pad(t, (0, width - hd)) for t in tensors), *rest)
+    outs = out if isinstance(out, tuple) else (out,)
+    outs = tuple(o[..., :hd].contiguous() if i < n_sliced else o
+                 for i, o in enumerate(outs))
+    return outs if isinstance(out, tuple) else outs[0]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -164,13 +201,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to H) → (O ``[B, S, H, hd]``, LSE ``[B, H, S]`` float32).
 
     Replaces ``_fwd_kernel``. On CUDA: ``csrc/flash_attention_fwd.cu``
-    (bf16: TMA + wgmma, a block of 128 query rows walking 64-key tiles,
-    the softmax in base 2, deterministic). Bound on the H100: operations,
-    4·hd flops per visible (query, key) pair and head at 989 TFLOP/s in
-    bf16."""
+    (bf16: TMA + wgmma, a block of 128 query rows walking 128-key tiles,
+    the softmax in base 2, deterministic; hd off 64/128 zero-padded,
+    :func:`run_padded`). Bound on the H100: operations, 4·hd flops per
+    visible (query, key) pair and head at 989 TFLOP/s in bf16."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, scale)
+    return run_padded(_fwd_launch, (q, k, v), 1, causal, scale)
+
+
+def _fwd_launch(q, k, v, causal, scale):
     _check_kernel_inputs("flash_attention_fwd", (q, k, v))
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
@@ -202,6 +243,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 causal, scale)
+    return run_padded(_dq_launch, (q, k, v, do), 1, lse, delta, causal,
+                      scale)
+
+
+def _dq_launch(q, k, v, do, lse, delta, causal, scale):
     _check_kernel_inputs("flash_attention_bwd_dq", (q, k, v, do),
                          (lse, delta))
     B, S, H, hd = q.shape
@@ -234,6 +280,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal, scale)
+    return run_padded(_dkv_launch, (q, k, v, do), 2, lse, delta, causal,
+                      scale)
+
+
+def _dkv_launch(q, k, v, do, lse, delta, causal, scale):
     _check_kernel_inputs("flash_attention_bwd_dkv", (q, k, v, do),
                          (lse, delta))
     B, S, H, hd = q.shape

@@ -13,7 +13,8 @@ in reverse, in order again) with ``chip_smoke.cuda_ms``, beside the card's
 name and power limit and ptxas's report. It needs a card and ``nvcc``, and runs from a checkout
 (it imports ``chip_smoke``). Probes: ``flash_fwd`` (K1 at B 4, S 2048, H
 32, hd 128, causal; K2 and K3 timed beside it), ``shard_major`` (K11 at x
-[4096, 14336] @ w [14336, 4096], 2 shards).
+[4096, 14336] @ w [14336, 4096], 2 shards), ``ragged`` (K6's bf16 kernel
+at the serving engine's SplitFuse shapes).
 """
 from __future__ import annotations
 
@@ -183,6 +184,17 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
         "shifted, walk 64, fused scale, lazy rescale": [
             (_FWD_WALK, _FWD_SHIFTED), *_FWD_WALK64, *_FWD_FUSED_SCALE,
             *_FWD_LAZY_RESCALE],
+    },
+    "ragged_paged_attention": {
+        "2 groups, 2 stages, 64-position chunks": [],
+        "1 group, 2 stages": [
+            ("constexpr int kGroups = 2;", "constexpr int kGroups = 1;")],
+        "1 group, 3 stages": [
+            ("constexpr int kGroups = 2;", "constexpr int kGroups = 1;"),
+            ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+        "2 groups, 32-position chunks": [
+            ("HDP == 256 ? 32 : 64;  // positions a chunk",
+             "32;  // positions a chunk")],
     },
     "collective_matmul": {
         "one wgmma group a stage": [],
@@ -366,7 +378,71 @@ def probe_shard_major(cs):
     print(f"time torch.matmul: {lib:.4f} ms")
 
 
-PROBES = {"flash_fwd": probe_flash_fwd, "shard_major": probe_shard_major}
+def probe_ragged(cs):
+    """K6's bf16 kernel: each variant against the plain version on the
+    paged edge batches and the batches below (two calls bit for bit), then
+    timed in turns on SplitFuse batches of the serving engine's shapes
+    (llama3-8B's heads, 16 sequence slots): the main shapes; 8 decode rows
+    at 1,000-2,000 positions of context beside one 200-token chunk; one
+    256-token prompt chunk at 1,792-2,048 positions; and two launches too
+    small to fill the card: one 16-token chunk at 2,048 positions with a
+    single sequence slot, and Falcon-7B's heads (MQA, 71 query heads on 1
+    KV head, hd 64) with 4 decode rows at 2,000 positions."""
+    from ..inference.v2.kernels import ragged_ops as ops
+
+    libs = build_variants("ragged_paged_attention")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 92)
+    tree = bld.load_kernels()["ragged_paged_attention"]
+    m = cs.main_shapes()
+    llama = (m["KV"], m["G"], m["hd"])
+    batches = {
+        "main shapes": (llama, m["k6_q_lens"], m["k6_kv_lens"],
+                        m["k6_pad"]),
+        "8 decode rows + a 200-token chunk": (
+            llama, [1] * 8 + [200] + [0] * 7,
+            [1000 + 125 * i for i in range(8)] + [712] + [0] * 7, 48),
+        "a 256-token chunk at 2048": (llama, [256] + [0] * 15,
+                                      [2048] + [0] * 15, 0),
+        "a 16-token chunk at 2048, one slot": (llama, [16], [2048], 0),
+        "falcon-7b heads, 4 decode rows at 2000": (
+            (1, 71, 64), [1] * 4 + [0] * 12, [2000] * 4 + [0] * 12, 12),
+    }
+    inputs = {name: (geo[0], cs.paged_inputs(
+        torch, gen, KV=geo[0], G=geo[1], hd=geo[2], ps=m["ps"], NB=m["NB"],
+        n_pages=16 * m["NB"] + 1, q_lens=ql, kv_lens=kl,
+        dtype=torch.bfloat16, pad_tokens=pad))
+        for name, (geo, ql, kl, pad) in batches.items()}
+    try:
+        for name, lib in libs.items():
+            bld.load_kernels()["ragged_paged_attention"] = lib
+            for bname, (KV, args) in inputs.items():
+                cs.check_ragged(torch, ops, f"[{name}] {bname}", *args, KV)
+            for KV, G, hd, ps in cs.PAGED_EDGES:
+                NB = 640 // ps
+                args = cs.paged_inputs(
+                    torch, gen, KV=KV, G=G, hd=hd, ps=ps, NB=NB,
+                    n_pages=9 * NB + 1, q_lens=[7, 0, 1, 16, 1, 33, 0, 0],
+                    kv_lens=[7, 0, 64, 16, 300, 400, 0, 0],
+                    dtype=torch.bfloat16, pad_tokens=5)
+                cs.check_ragged(torch, ops, f"[{name}] KV={KV} G={G} "
+                                f"hd={hd} ps={ps}", *args, KV,
+                                alibi=ops.alibi_slopes(KV * G).tolist())
+    finally:
+        bld.load_kernels()["ragged_paged_attention"] = tree
+    for bname, (KV, args) in inputs.items():
+        times = _turns(cs, "ragged_paged_attention", libs,
+                       lambda: ops.ragged_paged_attention(
+                           *args, num_kv_heads=KV), 20)
+        for name, ts in times.items():
+            print(f"time K6 {bname} [{name}]: "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+        dev = cs.device_ms(torch, lambda: ops.ragged_paged_attention(
+            *args, num_kv_heads=KV))
+        print(f"time K6 {bname} (the tree's, device): {dev:.4f} ms")
+
+
+PROBES = {"flash_fwd": probe_flash_fwd, "shard_major": probe_shard_major,
+          "ragged": probe_ragged}
 
 
 def main(argv: List[str]) -> int:

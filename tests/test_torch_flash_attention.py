@@ -380,3 +380,59 @@ def test_bf16_fwd_tile_walk_emulation(S, causal, hd, rounding):
         np.testing.assert_allclose(o.numpy(), o_ref.numpy(), **TOL)
     np.testing.assert_array_less((lse - lse_ref).abs().numpy(),
                                  (1e-4 + 1e-5 * lse_ref.abs()).numpy())
+
+
+# --------------------------------------------------------------------- #
+# head dims off 64/128: the CUDA path's zero-pad-and-slice
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 80, 96])
+def test_padded_head_dim_matches_unpadded_and_pallas(hd, causal):
+    """``run_padded`` (what the CUDA path calls: q, k, v, dO zero-padded
+    to 64 or 128, the scale from the true hd, O/dQ/dK/dV sliced back, the
+    LSE unchanged) around the plain versions, against the unpadded plain
+    versions and the JAX ``_fwd``/``_bwd`` at that hd, within 2e-5 (the
+    padded columns add +0 to float32 sums)."""
+    rng = np.random.default_rng(hd + causal)
+    S = 100
+    q, k, v, do = (rng.normal(size=(B, S, H, hd)).astype(np.float32)
+                   for _ in range(4))
+    scale = 1.0 / np.sqrt(hd)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    assert port_fa.kernel_head_dim(hd) == (64 if hd <= 64 else 128)
+    o, lse = port_fa.run_padded(port_fa.flash_attention_fwd_reference,
+                                t[:3], 1, causal, scale)
+    o_u, lse_u = port_fa.flash_attention_fwd_reference(*t[:3], causal, scale)
+    assert o.shape == o_u.shape and o.is_contiguous()
+    np.testing.assert_allclose(o.numpy(), o_u.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_u.numpy(), **TOL)
+    o_j, lse_j = jax_fa._fwd(_bhsd(q), _bhsd(k), _bhsd(v), scale, causal,
+                             128, 128)
+    np.testing.assert_allclose(o.numpy(), _bshd(o_j), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **TOL)
+
+    delta = (t[3] * o).sum(-1).transpose(1, 2).contiguous()
+    dq = port_fa.run_padded(port_fa.flash_attention_bwd_dq_reference, t, 1,
+                            lse, delta, causal, scale)
+    dk, dv = port_fa.run_padded(port_fa.flash_attention_bwd_dkv_reference,
+                                t, 2, lse, delta, causal, scale)
+    dq_j, dk_j, dv_j = jax_fa._bwd(
+        scale, causal, 128, 128,
+        (_bhsd(q), _bhsd(k), _bhsd(v), o_j, lse_j), _bhsd(do))
+    for got, ref in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        assert got.shape == (B, S, H, hd)
+        np.testing.assert_allclose(got.numpy(), _bshd(ref), **TOL)
+    np.testing.assert_allclose(
+        dq.numpy(), port_fa.flash_attention_bwd_dq_reference(
+            *t, lse, delta, causal, scale).numpy(), **TOL)
+
+
+def test_head_dims_above_128_are_refused():
+    for hd in (64, 128):
+        assert port_fa.kernel_head_dim(hd) == hd
+    with pytest.raises(ValueError, match="Queue 3.1"):
+        port_fa.kernel_head_dim(160)
+    x = torch.zeros(1, 4, 1, 256)
+    with pytest.raises(ValueError, match="Queue 3.1"):
+        port_fa.run_padded(port_fa.flash_attention_fwd_reference,
+                           (x, x, x), 1, True, 1.0)

@@ -282,3 +282,26 @@ def test_a_world_of_one_is_the_plain_matmul():
         assert torch.equal(out, ref)
     g = torch.randn(3, 5)
     assert tfg.fused_gemm_allreduce(g, AXES, wire_bits=4) is g
+
+
+@pytest.mark.parametrize("K,N", ((72, 45), (61, 80), (13, 7)))
+def test_padded_matmul_operands_match_unpadded_and_pallas(K, N):
+    """``padded_matmul_operands`` (what K11's CUDA path calls: K and N
+    zero-padded to multiples of 8) with the product sliced back to N,
+    against the unpadded plain version (bit for bit: the padded K adds +0
+    products) and the JAX ``shard_major_matmul`` in interpret mode."""
+    rng = np.random.default_rng(K + N)
+    x = rng.standard_normal((32, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    tx, tw = _t(x), _t(w)
+    xp, wp, n = tfcm.padded_matmul_operands(tx, tw)
+    assert n == N and xp.shape[1] % 8 == 0 and wp.shape == (xp.shape[1],
+                                                            -(-N // 8) * 8)
+    out = tfcm.matmul_reference(xp, wp)[:, :N]
+    unpadded = tfcm.matmul_reference(tx, tw)
+    np.testing.assert_allclose(out.numpy(), unpadded.numpy(), rtol=1e-6,
+                               atol=1e-5)
+    ref = jfcm.shard_major_matmul(jnp.asarray(x), jnp.asarray(w), 2,
+                                  block_m=16, block_n=16)
+    terms = (np.abs(x) @ np.abs(w), K)
+    _within(out.numpy(), np.asarray(ref), terms, "K11 padded")

@@ -342,3 +342,294 @@ def test_paged_kv_append_matches_jax():
     assert ret is pool
     real = slice(0, NP - 1)          # the trash page's content is unspecified
     np.testing.assert_array_equal(pool.numpy()[real], ref[real])
+
+
+# --------------------------------------------------------------------- #
+# ALiBi (both forms), head dims off 64/128, wide query groups
+# --------------------------------------------------------------------- #
+def _alibi_for(H, seed):
+    """Standard slopes scaled up so that the bias moves the softmax at
+    these short contexts (Bloom's slopes at H heads times 3)."""
+    return (port_ops.alibi_slopes(H).numpy() * (1.0 + seed % 3)).astype(
+        np.float32)
+
+
+def _jax_ragged_alibi(q, pages, kvl, pt, cu, KV, alibi, scaled):
+    return np.asarray(jax_ops.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(kvl), jnp.asarray(pt),
+        jnp.asarray(cu), num_kv_heads=KV, alibi=alibi, alibi_scaled=scaled,
+        block_q=8, pages_per_chunk=2, interpret=True))
+
+
+def _port_ragged_alibi(q, pages, kvl, pt, cu, KV, alibi, scaled):
+    return port_ops.ragged_paged_attention(
+        torch.from_numpy(q), torch.from_numpy(pages), torch.from_numpy(kvl),
+        torch.from_numpy(pt), torch.from_numpy(cu), num_kv_heads=KV,
+        alibi=alibi, alibi_scaled=scaled).numpy()
+
+
+#: (G, hd) pairs of the ALiBi cases: MHA at hd 16, GQA 4 at hd 80, a group
+#: of 16 at hd 128
+ALIBI_SHAPES = [(1, 16), (4, 80), (16, 128)]
+
+
+class TestAlibi:
+    """ALiBi in the plain K6 and K7 against the Pallas kernels in interpret
+    mode within 2e-5 (the same float32 softmax terms in another order; the
+    biases and the fused ``dot·scale + bias`` computed alike, Falcon's
+    bf16(k_pos) included), and Bloom's against the JAX
+    ``decode_attend_dense``. kv_lens run past 256, where k_pos is no longer
+    exact in bf16. Falcon's form is not held against an eager call of
+    ``decode_attend_dense``: eager, JAX rounds bf16(slope)·bf16(k_pos) to
+    bf16 once more, which jitted XLA (the Pallas kernels and the JAX
+    engine) does not."""
+
+    @pytest.mark.parametrize("scaled", [False, True])
+    @pytest.mark.parametrize("G,hd", ALIBI_SHAPES)
+    def test_ragged_matches_pallas(self, G, hd, scaled):
+        rng = np.random.default_rng(80 + G + hd)
+        KV, ps, NB = 2, 32, 12
+        q_lens, ctx_lens = [3, 1, 0, 6, 1], [300, 290, 0, 261, 17]
+        q, pages, kvl, pt, cu = _ragged_case(rng, q_lens, ctx_lens, KV, G,
+                                             hd, ps, NB, pad_tokens=2)
+        alibi = _alibi_for(KV * G, G)
+        ref = _jax_ragged_alibi(q, pages, kvl, pt, cu, KV, alibi, scaled)
+        out = _port_ragged_alibi(q, pages, kvl, pt, cu, KV, alibi, scaled)
+        np.testing.assert_allclose(out, ref, **TOL)
+        np.testing.assert_array_equal(out[-2:], 0.0)
+        plain = _port_ragged_alibi(q, pages, kvl, pt, cu, KV, None, False)
+        assert np.abs(out - plain).max() > 1e-2      # the bias moved it
+
+    @pytest.mark.parametrize("scaled", [False, True])
+    @pytest.mark.parametrize("G,hd", ALIBI_SHAPES)
+    def test_decode_matches_pallas_and_dense(self, G, hd, scaled):
+        rng = np.random.default_rng(90 + G + hd)
+        KV, ps, NB = 2, 32, 12
+        ctx = [300, 0, 257, 383, 1]
+        q, pages, kvl, pt = _decode_case(rng, ctx, KV, G, hd, ps, NB)
+        alibi = _alibi_for(KV * G, G + 1)
+        ref = np.asarray(jax_ops.decode_paged_attention(
+            jnp.asarray(q), jnp.asarray(pages), jnp.asarray(kvl),
+            jnp.asarray(pt), num_kv_heads=KV, alibi=alibi,
+            alibi_scaled=scaled, pages_per_chunk=2, interpret=True))
+        out = port_ops.decode_paged_attention(
+            torch.from_numpy(q), torch.from_numpy(pages),
+            torch.from_numpy(kvl), torch.from_numpy(pt), num_kv_heads=KV,
+            alibi=alibi, alibi_scaled=scaled).numpy()
+        np.testing.assert_allclose(out, ref, **TOL)
+        if not scaled:
+            dense = np.asarray(jax_ops.decode_attend_dense(
+                jnp.asarray(q), jnp.asarray(pages), jnp.asarray(kvl),
+                jnp.asarray(pt), num_kv_heads=KV, alibi=alibi))
+            np.testing.assert_allclose(out, dense, **TOL)
+        np.testing.assert_array_equal(out[1], 0.0)
+
+    def test_slopes_are_the_reference_ones(self):
+        from deepspeed_tpu.models.families import alibi_slopes as jax_slopes
+
+        for H in (1, 3, 8, 12, 16, 71):
+            np.testing.assert_array_equal(port_ops.alibi_slopes(H).numpy(),
+                                          jax_slopes(H))
+
+    def test_slope_count_must_match_heads(self):
+        rng = np.random.default_rng(95)
+        q, pages, kvl, pt = _decode_case(rng, [7, 12], 1, 4, 16, 4, 4)
+        args = [torch.from_numpy(a) for a in (q, pages, kvl, pt)]
+        with pytest.raises(ValueError, match="per query head"):
+            port_ops.decode_paged_attention(*args, num_kv_heads=1,
+                                            alibi=[0.5, 0.25])
+        cu = torch.tensor([0, 1, 2], dtype=torch.int32)
+        with pytest.raises(ValueError, match="per query head"):
+            port_ops.ragged_paged_attention(*args, cu, num_kv_heads=1,
+                                            alibi=[0.5] * 5)
+
+    def test_falcon_bias_rounds_k_pos_in_bf16(self):
+        """Past 256, bf16(k_pos) steps by 2, rounding half to even: Falcon's
+        bias is slope·bf16(k_pos), Bloom's slope·k_pos."""
+        slopes = torch.tensor([0.5])
+        pos = torch.arange(256, 264)
+        falcon = port_ops.alibi_bias(slopes, pos, 1.0, True)[0]
+        bloom = port_ops.alibi_bias(slopes, pos, 1.0, False)[0]
+        assert falcon.tolist() == [0.5 * p for p in (256, 256, 258, 260, 260,
+                                                     260, 262, 264)]
+        assert bloom.tolist() == [0.5 * p for p in range(256, 264)]
+
+
+def test_padded_head_dim_and_copy_width():
+    assert [port_ops.padded_head_dim(h) for h in (1, 16, 64, 65, 80, 128,
+                                                  129, 256)] == [
+        64, 64, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="Queue 3"):
+        port_ops.padded_head_dim(257)
+    t = torch.zeros(64, dtype=torch.bfloat16)
+    assert port_ops.copy_width(128, 2, t) == 16
+    assert port_ops.copy_width(20, 2, t) == 8
+    assert port_ops.copy_width(6, 2, t) == 4
+    assert port_ops.copy_width(7, 2, t) == 2
+    assert port_ops.copy_width(8, 2, t[1:]) == 2
+    assert port_ops.copy_width(5, 4, torch.zeros(8)) == 4
+
+
+# --------------------------------------------------------------------- #
+# The CUDA K6 bf16 kernel's walk, emulated in float32
+# --------------------------------------------------------------------- #
+#: rows a tile of the CUDA K6 (``kRows`` in csrc/ragged_paged_attention.cu)
+K6_ROWS = 64
+#: warp groups walking alternate chunks of a tile (``kGroups``)
+K6_GROUPS = 2
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _k6_geometry(G):
+    """(n_gs, GS, BQ): group slices, heads a slice, tokens a tile."""
+    n_gs = -(-G // K6_ROWS)
+    GS = -(-G // n_gs)
+    return n_gs, GS, K6_ROWS // GS
+
+
+def _merge_states(states):
+    """Softmax states (m, l, acc) merged in order: m* = max m_i, each
+    weighed by 2^(m_i - m*)."""
+    m_star = torch.stack([st[0] for st in states]).max(dim=0).values
+    l, acc = torch.zeros_like(states[0][1]), 0.0
+    for m_i, l_i, acc_i in states:
+        f = torch.exp2(m_i - m_star)
+        l = l + f * l_i
+        acc = acc + f[:, None] * acc_i
+    return m_star, l, acc
+
+
+def _k6_walk_emulation(q, pages, kvl, pt, cu, KV, alibi=None,
+                       scaled=False):
+    """A plain float32 emulation of the CUDA K6 bf16 kernel's walk, for
+    these tests only (its bf16 rounding of P left out): tiles of up to 64
+    rows (BQ tokens x GS heads of a group slice, a group wider than 64 cut
+    into slices), context chunks of 64 positions (32 at a padded head width
+    of 256) gathered through the page table, K6_GROUPS warp groups taking
+    alternate chunks, scores in base 2 (the scale and log2 e folded in, the
+    ALiBi bias added to s * scale first), the causal mask only on chunks
+    that reach past the tile's first row, masked entries weighing exactly
+    0; the groups' states merged in group order (m* = max m_i, 2^(m_i -
+    m*) weights), one division at the end."""
+    q, pages = torch.as_tensor(q), torch.as_tensor(pages)
+    pt, cu, kvl = (torch.as_tensor(pt).long(), np.asarray(cu),
+                   np.asarray(kvl))
+    T, H, hd = q.shape
+    G = H // KV
+    ps = pages.shape[1]
+    scale = np.float32(1.0 / np.sqrt(hd))
+    KC = 32 if port_ops.padded_head_dim(hd) == 256 else 64
+    n_gs, GS, BQ = _k6_geometry(G)
+    slopes = None if alibi is None else torch.as_tensor(alibi).float()
+    neg = torch.tensor(-1e30)
+
+    def walk(qt, s, h, heads, qpos, q_pos0, chunks):
+        R = qt.shape[0]
+        m = torch.full((R,), -1e30)
+        l, acc = torch.zeros(R), torch.zeros(R, hd)
+        for base, end in chunks:
+            pos = torch.arange(base, end)
+            rows = pages[pt[s, pos // ps], pos % ps]
+            x = qt @ rows[:, h].T
+            if slopes is None:
+                x = x * (scale * LOG2E)
+            else:
+                b = port_ops.alibi_bias(slopes[heads], pos, float(scale),
+                                        scaled)
+                x = port_ops.biased_scores(x, float(scale), b) * LOG2E
+            if base + KC - 1 > q_pos0:
+                x = torch.where(pos[None, :] > qpos, neg, x)
+            m_new = torch.maximum(m, x.max(dim=1).values)
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(x == neg, 0.0, torch.exp2(x - m_new[:, None]))
+            l = l * alpha + p.sum(dim=1)
+            acc = acc * alpha[:, None] + p @ rows[:, KV + h]
+            m = m_new
+        return m, l, acc
+
+    out = torch.zeros(T, H, hd)
+    for s in range(len(kvl)):
+        q0, q1, L = int(cu[s]), int(cu[s + 1]), int(kvl[s])
+        n = q1 - q0
+        for tb in range(-(-n // BQ) if n > 0 else 0):
+            for gi in range(n_gs):
+                t0, g0 = q0 + tb * BQ, gi * GS
+                t1, g1 = min(t0 + BQ, q1), min(gi * GS + GS, G)
+                q_pos0 = L - n + (t0 - q0)
+                eff = max(0, min(L, L - n + (t1 - q0)))
+                toks = torch.arange(t0, t1).repeat_interleave(g1 - g0)
+                gs = torch.arange(g0, g1).repeat(t1 - t0)
+                qpos = (L - n + (toks - q0))[:, None]
+                for h in range(KV):
+                    heads = h * G + gs
+                    qt = q[toks, heads]                          # [R, hd]
+                    if eff == 0:
+                        continue
+                    chunks = [(b, min(b + KC, eff))
+                              for b in range(0, eff, KC)]
+                    _, l, acc = _merge_states([
+                        walk(qt, s, h, heads, qpos, q_pos0,
+                             chunks[g::K6_GROUPS])
+                        for g in range(K6_GROUPS)])
+                    out[toks, heads] = torch.where(
+                        l[:, None] == 0, 0.0,
+                        acc / torch.where(l == 0, 1.0, l)[:, None])
+    return out.numpy()
+
+
+class TestRaggedTileWalk:
+    """The CUDA K6's tile walk (group slices, the two warp groups'
+    alternate chunks), emulated in float32, against the plain version and
+    the Pallas kernel (interpret mode) within 2e-5: the same float32 terms
+    in another order."""
+
+    @pytest.mark.parametrize("ps", [16, 32, 64])
+    @pytest.mark.parametrize("G,hd", [(1, 16), (4, 128), (16, 80),
+                                      (71, 16)])
+    def test_walk_matches_plain_and_pallas(self, G, hd, ps):
+        """Pages of 16, 32 and 64 rows: a chunk's positions gathered from
+        one page or several."""
+        rng = np.random.default_rng(100 + G + hd + ps)
+        KV = 1 if G == 71 else 2
+        NB = 384 // ps
+        q_lens = [5, 1, 0, 12, 1, 0]
+        ctx_lens = [9, 300, 0, 140, 64, 0]
+        q, pages, kvl, pt, cu = _ragged_case(rng, q_lens, ctx_lens, KV, G,
+                                             hd, ps, NB, pad_tokens=3)
+        emu = _k6_walk_emulation(q, pages, kvl, pt, cu, KV)
+        np.testing.assert_allclose(emu, _port_ragged(q, pages, kvl, pt, cu,
+                                                     KV), **TOL)
+        if ps == 16:
+            np.testing.assert_allclose(emu, _jax_ragged(q, pages, kvl, pt,
+                                                        cu, KV), **TOL)
+        np.testing.assert_array_equal(emu[-3:], 0.0)
+
+    @pytest.mark.parametrize("scaled", [False, True])
+    def test_alibi_walk_at_hd_256(self, scaled):
+        """hd 256 (32-position chunks), ALiBi past 256 positions: equal to
+        the plain version and Pallas."""
+        rng = np.random.default_rng(110 + scaled)
+        KV, G, hd, ps, NB = 2, 2, 256, 32, 12
+        q_lens, ctx_lens = [4, 1, 2], [290, 377, 2]
+        q, pages, kvl, pt, cu = _ragged_case(rng, q_lens, ctx_lens, KV, G,
+                                             hd, ps, NB)
+        alibi = _alibi_for(KV * G, 2)
+        emu = _k6_walk_emulation(q, pages, kvl, pt, cu, KV, alibi, scaled)
+        np.testing.assert_allclose(emu, _port_ragged_alibi(
+            q, pages, kvl, pt, cu, KV, alibi, scaled), **TOL)
+        np.testing.assert_allclose(emu, _jax_ragged_alibi(
+            q, pages, kvl, pt, cu, KV, alibi, scaled), **TOL)
+
+    def test_nan_page_stays_in_its_sequence(self):
+        rng = np.random.default_rng(120)
+        KV, G, hd, ps, NB = 2, 4, 64, 16, 24
+        q_lens, ctx_lens = [3, 4, 1], [11, 200, 300]
+        q, pages, kvl, pt, cu = _ragged_case(rng, q_lens, ctx_lens, KV, G,
+                                             hd, ps, NB)
+        clean = _k6_walk_emulation(q, pages, kvl, pt, cu, KV)
+        poisoned = pages.copy()
+        poisoned[pt[1, 3]] = np.nan              # one page of sequence 1
+        out = _k6_walk_emulation(q, poisoned, kvl, pt, cu, KV)
+        mates = np.r_[0:3, 7:8]
+        np.testing.assert_array_equal(out[mates], clean[mates])
+        assert np.isnan(out[3:7]).all()

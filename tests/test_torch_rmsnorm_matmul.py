@@ -99,3 +99,35 @@ def test_row_normaliser_prepass_matches_rms_norm_and_jax(rows, D):
     rj = jax.lax.rsqrt(var + EPS).astype(xj.dtype)
     np.testing.assert_array_equal(r.float().numpy(),
                                   np.asarray(rj.astype(jnp.float32)))
+
+
+# --------------------------------------------------------------------- #
+# D and F off multiples of 8: the CUDA path's zero-pad-and-slice
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("D,F", [(61, 40), (64, 45), (77, 93)])
+def test_padded_widths_match_unpadded_and_pallas(D, F):
+    """``padded_rmsnorm_operands`` (what the CUDA path calls: x, scale, w
+    zero-padded to multiples of 8) with the normaliser's mean over the
+    true D (``d_norm``) and F sliced back, against the unpadded plain
+    version and the JAX kernel in interpret mode, within 2e-5."""
+    x, scale, w, _ = _inputs(D + F, (50,), D, F)
+    xt, st, wt = (torch.from_numpy(a) for a in (x, scale, w))
+    xp, sp, wp, d, f = port_fcm.padded_rmsnorm_operands(xt, st, wt)
+    assert (d, f) == (D, F) and xp.shape[1] % 8 == 0 and wp.shape[1] % 8 == 0
+    assert torch.equal(xp[:, :D], xt) and not xp[:, D:].any()
+    y = port_fcm.rmsnorm_matmul_reference(xp, sp, wp, EPS, d_norm=D)[:, :F]
+    np.testing.assert_allclose(
+        y.numpy(), port_fcm.rmsnorm_matmul_reference(xt, st, wt,
+                                                     EPS).numpy(), **TOL)
+    y_j = jax_fcm.rmsnorm_matmul(jnp.asarray(x), jnp.asarray(scale),
+                                 jnp.asarray(w), EPS, impl="pallas")
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+
+
+def test_padding_leaves_aligned_widths_alone():
+    x, scale, w, _ = _inputs(3, (8,), 64, 48)
+    xt, st, wt = (torch.from_numpy(a) for a in (x, scale, w))
+    xp, sp, wp, _, _ = port_fcm.padded_rmsnorm_operands(xt, st, wt)
+    assert xp is xt and sp is st and wp is wt
+    assert port_fcm.aligned16(xt) is xt
+    assert port_fcm.aligned16(xt.view(-1)[1:]).data_ptr() % 16 == 0

@@ -351,3 +351,47 @@ def test_bigbird_draws_match_python_random():
                               different_layout_per_head=True)
         assert np.array_equal(pcfg.make_layout(256),
                               np.asarray(jcfg.make_layout(256)))
+
+
+# --------------------------------------------------------------------- #
+# head dims off 64/128: the CUDA path's zero-pad-and-slice
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("hd", [16, 80, 96])
+def test_padded_head_dim_matches_unpadded_and_pallas(hd):
+    """``bs.run_padded`` (what the CUDA path calls: q, k, v, dO zero-padded
+    to 64 or 128, the scale from the true hd, O/dQ/dK/dV sliced back)
+    around the plain K16-K19, against the unpadded plain versions and the
+    JAX ``_bs_fwd`` at that hd (forward 2e-5, gradients 1e-4)."""
+    S = 96
+    _, pcfg = _configs(*LAYOUTS[0])
+    layout = pcfg.make_layout(S)
+    rng = np.random.default_rng(hd)
+    q, k, v, do = (rng.normal(size=(B, H, S, hd)).astype(np.float32)
+                   for _ in range(4))
+    t = _t(q, k, v, do)
+    tables = bs.prepare_layout(layout, BLOCK, H, "cpu")
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = bs.run_padded(bs.block_sparse_fwd_reference, t[:3], 1, tables,
+                           scale)
+    o_u, lse_u = bs.block_sparse_fwd_reference(*t[:3], tables, scale)
+    np.testing.assert_allclose(o.numpy(), o_u.numpy(), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_u.numpy(), **FWD_TOL)
+    o_j, lse_j = _jax_fwd(q, k, v, layout, want_lse=True)
+    np.testing.assert_allclose(o.numpy(), o_j, **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, **FWD_TOL)
+    delta = (t[3] * o).sum(-1)
+    dq = bs.run_padded(bs.block_sparse_bwd_dq_reference, t, 1, lse, delta,
+                       tables, scale)
+    dk, dv = bs.run_padded(bs.block_sparse_bwd_dkv_reference, t, 2, lse,
+                           delta, tables, scale)
+    ref_q = bs.block_sparse_bwd_dq_reference(*t, lse, delta, tables, scale)
+    ref_k, ref_v = bs.block_sparse_bwd_dkv_reference(*t, lse, delta, tables,
+                                                     scale)
+    for got, ref in ((dq, ref_q), (dk, ref_k), (dv, ref_v)):
+        assert got.shape == (B, H, S, hd)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **GRAD_TOL)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_bs.block_sparse_attention(a, b, c, layout, BLOCK),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
