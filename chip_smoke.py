@@ -12,9 +12,11 @@ non-zero before the last line is printed:
      in the build directory are removed first) and print the build time
      and ptxas report,
      with the registers, spills and static shared memory of the kernels
-     redesigned for Hopper (``REDESIGNED``: K6, K7, K4, K2, K3, K1 and
-     K11); a spill in one of them, or a wgmma serialization warning outside
-     K4's (there since its redesign), fails the run;
+     redesigned for Hopper (``REDESIGNED``: K6, K7, K4, K2, K3, K1, K11,
+     K12 and K19); a spill in one of them, or a wgmma serialization
+     warning outside K4's (there since its redesign), fails the run; and
+     build the designs K12's and K19's redesign replaced from their copies
+     in ``deepspeed_tpu_torch/utils/probe_parents/`` (timing only);
   3. hold each kernel against its plain PyTorch version on the card: at the
      serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16; K6's
      bf16 kernel within two ulps plus FLASH_BF16_TERMS of |P|@|V|, since
@@ -99,7 +101,8 @@ non-zero before the last line is printed:
      against their plain versions on 16 edge batches: float32 and bf16,
      block 16, 32, 64 and 128, hd 64 and 128, each layout class in turn,
      per-head layouts, an emptied q-block row (O = 0, LSE = -1e30 exactly)
-     and S off the block grid; and at hd 16, 80 and 96 (zero-padded);
+     and S off the block grid (K19 twice on each, bit for bit); and at hd
+     16, 80 and 96 (zero-padded);
  14. the sparse-attention path: ``SparseSelfAttention(cfg)(q, k, v,
      use_kernel=True)`` at llama3-8B attention width (B 1, H 32, S 8192,
      hd 128, bf16, block 64): under ``torch.no_grad()`` with the Fixed
@@ -108,10 +111,13 @@ non-zero before the last line is printed:
      K16, K18 and K19 once each a step; the serving output against the
      masked-dense path (8 heads at a time), the training gradients bitwise
      equal to the kernels called directly, and K16-K19 against their plain
-     versions at this width;
+     versions at this width; K19 against a planted fault (one q-block left
+     out of the longest list), which must read at least 10x its limits;
  15. time K16-K19 at that shape beside their bound, their plain versions,
      SDPA with the expanded boolean token mask (timing only) and K1's
-     causal dense forward (for scale); print the sparse results' line and
+     causal dense forward (for scale); K19's parent design on both layouts
+     and K19 at the configs' default block 16 (the kept exact path),
+     timing only; print the sparse results' line and
      the ``kernels`` JSON line (serving, training, optimizer, sparse and
      quantizer kernels, 18 in all);
  16. (after phase 13) hold the quantizer kernels against their plain
@@ -163,14 +169,18 @@ non-zero before the last line is printed:
      on bf16 and float32 edges (M 300, K 72, N 200 in 3 shards; M 64, K
      4096, N 40 in 2; K and N off multiples of 8, 75/203 and 61/45,
      zero-padded by the wrapper; x off 16-byte alignment, copied), K12
-     ``_gathered_dequant_matmul`` at x
-     [4096, 14336] against 2 int4 and int8 shards of [7168, 4096] and an
-     odd float32 edge, each within an elementwise limit set from the
-     roundings' statistics (``matmul_limit``), with planted faults (a
-     32-wide K tile dropped; K11's sums carried in bfloat16) read against
+     ``_gathered_dequant_matmul`` at x [4096, 14336] bf16 against 2 int4
+     and int8 shards of [7168, 4096] and on ``K12_EDGES`` (M, k and N off
+     its tiles and stages, group 200, odd N, float32 and bf16 x), two
+     calls bit for bit, each within an elementwise limit set from the
+     roundings' statistics (``matmul_limit``), with planted faults (K11: a
+     32-wide K tile dropped, its sums carried in bfloat16; K12: a 16-deep
+     k-stage dropped, which must read at least 10x the limit) read against
      the same limits and required to exceed them; each timed at those
      shapes beside its bound, its plain version and, for K11,
-     ``torch.matmul`` (timing only);
+     ``torch.matmul`` (timing only); K12 also on the int8 wire, its parent
+     design, and the float32 ``torch.matmul`` by the weight already
+     dequantized (a yardstick without the dequantize);
  20. the data-parallel world: ``launcher.run_local_world`` spawns 2 gloo
      ranks, both on cuda:0 (NCCL takes one rank a GPU; every gloo
      collective the port uses takes CUDA tensors, none is staged through
@@ -537,8 +547,9 @@ def ptxas_report(log_text, names):
 
 
 # the kernels redesigned for Hopper (mma.sync + cp.async K6, split-context
-# K7, TMA + wgmma K4, K2, K3, K1 and K11), by source; their dynamic shared
-# memory comes on top of ptxas's static figure
+# K7, TMA + wgmma K4, K2, K3, K1, K11 and K19, the register-blocked float32
+# K12), by source; their dynamic shared memory comes on top of ptxas's
+# static figure
 REDESIGNED = {
     "ragged_paged_attention": ("ragged_paged_mma_kernel",),
     "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
@@ -546,13 +557,22 @@ REDESIGNED = {
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
                             "flash_bwd_dkv_wgmma_kernel"),
     "flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
-    "collective_matmul": ("shard_major_matmul_wgmma_kernel",),
+    "collective_matmul": ("shard_major_matmul_wgmma_kernel",
+                          "gathered_dequant_matmul_kernel"),
+    "block_sparse_attention_bwd": ("bs_dkv_wgmma_kernel",),
 }
 # a redesigned kernel's row in the kernels line, where that is not its
 # source's name
 REDESIGNED_ROWS = {"flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                    "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv",
-                   "shard_major_matmul_wgmma_kernel": "shard_major_matmul"}
+                   "shard_major_matmul_wgmma_kernel": "shard_major_matmul",
+                   "gathered_dequant_matmul_kernel":
+                       "gathered_dequant_matmul",
+                   "bs_dkv_wgmma_kernel": "block_sparse_bwd_dkv"}
+# the designs K12's and K19's redesign replaced, built from their copies in
+# deepspeed_tpu_torch/utils/probe_parents/ (kernel_probe.build_parents) and
+# timed beside the tree's: {source: library}
+_PARENT_LIBS = {}
 
 
 def phase_build(torch):
@@ -570,6 +590,12 @@ def phase_build(torch):
     libs = load_kernels()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {builder.build_seconds:.1f} s)")
+    from deepspeed_tpu_torch.utils import kernel_probe
+
+    t0 = time.perf_counter()
+    _PARENT_LIBS.update(kernel_probe.build_parents(kernel_probe.PARENTS))
+    log(f"build: the parent designs of {sorted(_PARENT_LIBS)} (timing "
+        f"only) in {time.perf_counter() - t0:.1f} s")
     for name, text in builder.build_log.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line
@@ -2391,7 +2417,52 @@ def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
     err_v = _compare_limit(torch, f"block_sparse_bwd_dkv dV {tag}", dv,
                            dv_ref, lim(dv_ref, pdo), why + "|P|^T@|dO|")
     errs["block_sparse_bwd_dkv"] = max(err_k, err_v)
+    dk2, dv2 = bs.block_sparse_bwd_dkv(q, k, v, do, lse_ref, delta, tables,
+                                       scale)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          f"block_sparse_bwd_dkv {tag}: two calls differ")
     return errs, (o, lse_ref)
+
+
+def check_bs_dkv_faults(torch, bs, tag, q, k, v, do, tables):
+    """K19 against a planted fault from the plain math, read against the
+    limits ``check_sparse`` holds it to: dK and dV with the last q-block
+    left out of the shortest transposed-layout list of two or more (a CTA
+    that skipped a list entry, block_sparse_attention_bwd.cu's walk),
+    which must read at least 10x the limits. (Out of a list of 125, the
+    longest of the Fixed layout, one entry moves dK by ~1/125 and read
+    3.8-5.5x.) → the fault's reading (x the limit)."""
+    import numpy as np
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = bs.block_sparse_fwd_reference(q, k, v, tables, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    _, _, dsq, pdo = sparse_terms(torch, bs, q, k, v, do, lse, delta,
+                                  tables, scale)
+    ref_k, ref_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                     tables, scale)
+    layout = tables.layout.copy()
+    lengths = layout.sum(axis=1)                 # [LH, nk]: list lengths
+    lengths = np.where(lengths >= 2, lengths, layout.shape[1] + 1)
+    lh, jk = np.unravel_index(int(lengths.argmin()), lengths.shape)
+    iq = int(np.nonzero(layout[lh, :, jk])[0][-1])
+    layout[lh, iq, jk] = False
+    dropped = bs.BlockSparseTables(layout, tables.block, q.device)
+    f_k, f_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 dropped, scale)
+
+    def lim(ref, t):
+        return BF16_ATOL + BF16_RTOL * ref.float().abs() + FLASH_BF16_TERMS * t
+
+    x_k = planted_fault(torch, f"dK {tag} with q-block {iq} left out of "
+                        f"k-block {jk}'s list", f_k, ref_k, lim(ref_k, dsq))
+    x_v = planted_fault(torch, f"dV {tag} with q-block {iq} left out of "
+                        f"k-block {jk}'s list", f_v, ref_v, lim(ref_v, pdo))
+    worst = min(x_k, x_v)
+    check(worst >= 10.0, f"K19's limits read a dropped list entry at only "
+                         f"{worst:.2f}x, not >= 10x")
+    return worst
 
 
 def sparse_inputs(torch, gen, B, H, S, hd, dtype, n=4):
@@ -2602,6 +2673,10 @@ def phase_sparse_main_path(torch):
                             tables, FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL)
         for n, x in e.items():
             errs[n] = max(errs.get(n, 0.0), x)
+        if name == "fixed":
+            results["dkv_planted_fault_over_limit"] = check_bs_dkv_faults(
+                torch, bs, "bf16 main shapes fixed", q, k, v, w, tables)
+            torch.cuda.empty_cache()
         results["training"][name] = {"step_s": sorted(times),
                                      "loss": float(loss.detach()),
                                      "launches_timed": train}
@@ -2635,7 +2710,9 @@ def phase_sparse_timing(torch, launches, errs, results):
 
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_kernel as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.utils import kernel_probe
 
     m = SPARSE_MAIN
     B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
@@ -2704,6 +2781,17 @@ def phase_sparse_timing(torch, launches, errs, results):
                 f"plain {plain_ms:.3f} ms; library "
                 f"{'-' if lib is None else f'{lib:.4f} ms'})")
             torch.cuda.empty_cache()
+        # K19's parent design on the same inputs (its C entry point is the
+        # tree's: swapped in under the wrapper), timing only
+        parent = kernel_probe.swapped(
+            "block_sparse_attention_bwd",
+            _PARENT_LIBS["block_sparse_attention_bwd"],
+            lambda: bs.block_sparse_bwd_dkv(q, k, v, do, lse, delta, tables,
+                                            scale))
+        dkv = rows["block_sparse_bwd_dkv"]
+        dkv["parent_ms"] = cuda_ms(torch, parent, 10)
+        log(f"time block_sparse_bwd_dkv ({lname}) parent design: "
+            f"{dkv['parent_ms']:.4f} ms (this tree's {dkv['ms']:.4f} ms)")
         by_layout[lname] = {"density": tables.density(),
                             "active_blocks": active, "kernels": rows}
         del o, lse, delta
@@ -2723,8 +2811,29 @@ def phase_sparse_timing(torch, launches, errs, results):
                       "density": by_layout["fixed"]["density"],
                       "dtype": "bf16"},
             "bigbird": by_layout["bigbird"]["kernels"][name]})
-    results["timing"] = {"k1_causal_dense_ms": k1_ms, "by_layout": by_layout}
-    del q, k, v, do
+    # K19 at the configs' default block, 16, on the exact mma.sync kernel
+    # the redesign kept for blocks 16 and 32 (Fixed, unidirectional)
+    cfg16 = sc.FixedSparsityConfig(num_heads=H, num_local_blocks=4,
+                                   num_global_blocks=1,
+                                   attention="unidirectional")
+    t16 = bs.prepare_layout(cfg16.make_layout(S), cfg16.block, H, DEVICE)
+    o, lse = bs.block_sparse_fwd(q, k, v, t16, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    ms16 = cuda_ms(torch, lambda: bs.block_sparse_bwd_dkv(
+        q, k, v, do, lse, delta, t16, scale), 10)
+    flops16 = 8 * hd * t16.active_blocks(H) * cfg16.block ** 2
+    b16, by16 = bound_ms(sparse_work("block_sparse_bwd_dkv", B, H, S, hd,
+                                     0)[0], flops16, BF16_FLOPS)
+    block16 = {"block": cfg16.block, "density": t16.density(), "ms": ms16,
+               "bound_ms": b16, "bound_by": by16}
+    log(f"time block_sparse_bwd_dkv (fixed, block {cfg16.block}, density "
+        f"{100 * t16.density():.2f}%, the kept mma.sync path): {ms16:.4f} ms "
+        f"(bound {b16:.4f} ms by {by16})")
+    next(r for r in kernels
+         if r["name"] == "block_sparse_bwd_dkv")["block16"] = block16
+    results["timing"] = {"k1_causal_dense_ms": k1_ms, "by_layout": by_layout,
+                         "dkv_block16": block16}
+    del q, k, v, do, o, lse, delta
     _free(torch)
     return kernels
 
@@ -3779,6 +3888,67 @@ def dropped_tile(torch, plain, x, k0=4096, width=32):
     return plain(xd)
 
 
+# K12's 16-deep k-stage (csrc/collective_matmul.cu, gd::kBK)
+K12_STAGE = 16
+# K12's edges: (M, k a shard, N, shards, bits, group size, x dtype): M, k
+# and N off the 128 x 128 tile and the 16-deep stage; groups straddling
+# weight rows and k*N off the group grid; group 200 (int4 halves of 100,
+# runs crossing them and runs off 8-byte alignment, element by element);
+# N odd (the stores element by element); a tall k; float32 and bf16 x
+K12_EDGES = ((130, 100, 136, 3, 4, 200, "f32"),
+             (300, 100, 200, 2, 8, 256, "bf16"),
+             (300, 100, 200, 2, 4, 256, "bf16"),
+             (257, 72, 203, 3, 4, 200, "bf16"),
+             (257, 72, 203, 3, 8, 200, "f32"),
+             (64, 4096, 40, 2, 4, 256, "bf16"))
+
+
+def k12_wires(torch, qz, w, n, bits, gs):
+    """The wires (int8 ``[n, groups, W]``, scales ``[n, groups, 1]``) of n
+    row blocks of ``w [n*k, N]``, each quantized as a rank's shard."""
+    kk = w.shape[0] // n
+    wires = [qz.quant_pack_wire(w[r * kk:(r + 1) * kk], bits, gs)
+             for r in range(n)]
+    return (torch.stack([a for a, _ in wires]),
+            torch.stack([b for _, b in wires]))
+
+
+def k12_dequantized(torch, fcm, wst, sst, bits, kk, N):
+    """The float32 weight ``[n*kk, N]`` the wires stand for."""
+    return torch.cat([fcm.unpack_dequant_wire_values(
+        wst[r], sst[r], bits).reshape(-1)[:kk * N].reshape(kk, N)
+        for r in range(wst.shape[0])])
+
+
+def check_gathered(torch, fcm, tag, x, wst, sst, bits, kk, N, out_dtype):
+    """K12 twice, bit for bit, and against its plain version within
+    ``matmul_limit`` of x by the dequantized weight. → (max abs error,
+    plain result, limit)."""
+    got = fcm._gathered_dequant_matmul(x, wst, sst, bits, kk, N, out_dtype)
+    again = fcm._gathered_dequant_matmul(x, wst, sst, bits, kk, N, out_dtype)
+    check(torch.equal(got, again), f"{tag}: two calls differ")
+    del again
+    ref = fcm._gathered_dequant_matmul_reference(x, wst, sst, bits, kk, N,
+                                                 out_dtype)
+    deq = k12_dequantized(torch, fcm, wst, sst, bits, kk, N)
+    limit = matmul_limit(torch, x, deq, got, ref)
+    del deq
+    return (_compare_limit(torch, tag, got, ref, limit, MATMUL_LIMIT), ref,
+            limit)
+
+
+def check_gathered_edge(torch, fcm, qz, gen, M, kk, N, n, bits, gs, dt):
+    """K12 on one of K12_EDGES (random x and weight). → max abs error."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    x = torch.randn(M, n * kk, generator=gen, device=DEVICE).to(dtype)
+    w = torch.randn(n * kk, N, generator=gen, device=DEVICE)
+    wst, sst = k12_wires(torch, qz, w, n, bits, gs)
+    err, _, _ = check_gathered(
+        torch, fcm, f"K12 {dt} [{M}, {n * kk}] x {n} int{bits} shards of "
+        f"[{kk}, {N}], group {gs}", x, wst, sst, bits, kk, N, torch.float32)
+    return err
+
+
 def bf16_sums(torch, x, w, width=32):
     """A planted fault: x @ w with each 32-wide K tile's product rounded
     to bfloat16 and the running sum carried in bfloat16, as a kernel that
@@ -3969,49 +4139,32 @@ def world_kernel_checks(torch):
                     f"{shards} shards, x offset {off}", got, ref,
                     matmul_limit(torch, xe, we, got, ref), MATMUL_LIMIT))
     # K12: x against the two shards of the same weight on the int4 and
-    # int8 wires (the prologue's operands at world 2), and an odd edge
+    # int8 wires (the prologue's operands at world 2), two calls bit for
+    # bit, a planted fault; then the edges (K12_EDGES)
     kk = K // WORLD_SIZE
     k12 = {}
     for bits in (4, 8):
-        wires = [qz.quant_pack_wire(wm[r * kk:(r + 1) * kk], bits, gs)
-                 for r in range(WORLD_SIZE)]
-        wst = torch.stack([a for a, _ in wires])
-        sst = torch.stack([b for _, b in wires])
-        got = fcm._gathered_dequant_matmul(x, wst, sst, bits, kk, N, bf16)
-        ref = fcm._gathered_dequant_matmul_reference(x, wst, sst, bits, kk,
-                                                     N, bf16)
-        deq = torch.cat([fcm.unpack_dequant_wire_values(
-            wst[r], sst[r], bits).reshape(-1)[:kk * N].reshape(kk, N)
-            for r in range(WORLD_SIZE)])
-        limit = matmul_limit(torch, x, deq, got, ref)
+        wst, sst = k12_wires(torch, qz, wm, WORLD_SIZE, bits, gs)
         tag = (f"K12 gathered_dequant_matmul int{bits} [4096, 14336] x 2 "
                f"shards of [7168, 4096]")
+        err, ref, limit = check_gathered(torch, fcm, tag, x, wst, sst, bits,
+                                         kk, N, bf16)
         errs["gathered_dequant_matmul"] = max(
-            errs["gathered_dequant_matmul"], _compare_limit(
-                torch, tag, got, ref, limit, MATMUL_LIMIT))
-        name = f"K12 int{bits} with a 32-wide K tile dropped"
+            errs["gathered_dequant_matmul"], err)
+        name = f"K12 int{bits} with a {K12_STAGE}-deep k-stage dropped"
         planted[name] = planted_fault(torch, name, dropped_tile(
             torch, lambda xd: fcm._gathered_dequant_matmul_reference(
-                xd, wst, sst, bits, kk, N, bf16), x), ref, limit)
+                xd, wst, sst, bits, kk, N, bf16), x, width=K12_STAGE),
+            ref, limit)
+        check(planted[name] >= 10.0, f"K12's limit reads a dropped k-stage "
+                                     f"at only {planted[name]:.2f}x, not "
+                                     f">= 10x")
         k12[bits] = (wst, sst)
-        del got, ref, deq, limit
-    xe = torch.randn(130, 300, generator=gen, device=DEVICE)
-    wires = [qz.quant_pack_wire(torch.randn(100 * 136, generator=gen,
-                                            device=DEVICE), 4, 200)
-             for _ in range(3)]           # a group size not a power of 2
-    wst = torch.stack([a for a, _ in wires])
-    sst = torch.stack([b for _, b in wires])
-    got = fcm._gathered_dequant_matmul(xe, wst, sst, 4, 100, 136, f32)
-    ref = fcm._gathered_dequant_matmul_reference(xe, wst, sst, 4, 100, 136,
-                                                 f32)
-    deq = torch.cat([fcm.unpack_dequant_wire_values(
-        wst[r], sst[r], 4).reshape(-1)[:100 * 136].reshape(100, 136)
-        for r in range(3)])
-    errs["gathered_dequant_matmul"] = max(
-        errs["gathered_dequant_matmul"], _compare_limit(
-            torch, "K12 float32 [130, 300] x 3 int4 shards of [100, 136], "
-                   "group 200",
-            got, ref, matmul_limit(torch, xe, deq, got, ref), MATMUL_LIMIT))
+        del ref, limit
+    for edge in K12_EDGES:
+        err = check_gathered_edge(torch, fcm, qz, gen, *edge)
+        errs["gathered_dequant_matmul"] = max(
+            errs["gathered_dequant_matmul"], err)
     torch.cuda.synchronize()
 
     # timing, each at the main path's shapes
@@ -4049,6 +4202,32 @@ def world_kernel_checks(torch):
             2 * M * K * N, F32_FLOPS,
             {"x": [M, K], "shards": 2, "w_shard": [kk, N], "wire": "int4"}),
     }
+    # K12's companions, timing only: the int8 wire; the parent design; the
+    # yardstick, float32 torch.matmul (TF32 off) of x by the weight already
+    # dequantized, which lacks the dequantize
+    from deepspeed_tpu_torch.utils import kernel_probe
+
+    parent = kernel_probe.parent_gathered(_PARENT_LIBS["collective_matmul"])
+    deq = k12_dequantized(torch, fcm, *k12[4], 4, kk, N)
+    x32 = x.float()
+
+    def yardstick():
+        with fcm._full_float32():
+            return torch.matmul(x32, deq)
+
+    k12_more = {
+        "int8_ms": cuda_ms(torch, lambda: fcm._gathered_dequant_matmul(
+            x, *k12[8], 8, kk, N, bf16), 10),
+        "parent_ms": cuda_ms(torch, lambda: parent(
+            x, *k12[4], 4, kk, N, bf16), 5),
+        "yardstick_ms": cuda_ms(torch, yardstick, 10),
+        "yardstick": "torch.matmul(x.float(), W) of the weight already "
+                     "dequantized, float32, TF32 off: lacks the dequantize"}
+    log(f"time gathered_dequant_matmul int8 wire: {k12_more['int8_ms']:.4f} "
+        f"ms; parent design (int4): {k12_more['parent_ms']:.4f} ms; "
+        f"yardstick {k12_more['yardstick_ms']:.4f} ms "
+        f"({k12_more['yardstick']})")
+    del deq, x32
     for name, (kern, plain, lib, nbytes, flops, peak, shape) in \
             specs.items():
         ms = cuda_ms(torch, kern, 10)
@@ -4060,7 +4239,9 @@ def world_kernel_checks(torch):
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'})")
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "bytes": nbytes, "flops": flops, "shape": shape})
+                     "bytes": nbytes, "flops": flops, "shape": shape,
+                     **(k12_more if name == "gathered_dequant_matmul"
+                        else {})})
     del leaf, w, s, stacks, x, wm, k12
     _free(torch)
     return errs, rows, planted
@@ -4093,7 +4274,9 @@ def world_kernel_entries(rows, res, errs):
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"], "library": libs[name],
-                    **{k: row[k] for k in ("shape", "bytes", "flops")}})
+                    **{k: row[k] for k in row if k not in (
+                        "name", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}})
     return out
 
 

@@ -103,32 +103,6 @@ struct Layout {
       2 * kOwnBytes + kStages * kStageBytes + 8 * kBars + 1024;
 };
 
-// Issues S = A0.B0^T and dP = A1.B1^T for one warpgroup, both [64 x 64],
-// as one wgmma group: A0, A1 its 64 owned rows (boxes `a_box` bytes
-// apart), B0, B1 the walked tile's 64 rows; all K-major over hd.
-template <int HD>
-__device__ __forceinline__ void score_products(float (&s)[32],
-                                               float (&dp)[32], uint32_t a0,
-                                               uint32_t a1, uint32_t b0,
-                                               uint32_t b1, uint32_t a_box) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
-    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
-    wgmma_m64n64k16_ss(s, wgmma_desc_kmajor(a0 + ao),
-                       wgmma_desc_kmajor(b0 + bo), kk);
-  }
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
-    const uint32_t bo = (kk / 4) * kWalkBox + (kk % 4) * 32;
-    wgmma_m64n64k16_ss(dp, wgmma_desc_kmajor(a1 + ao),
-                       wgmma_desc_kmajor(b1 + bo), kk);
-  }
-  wgmma_commit();
-}
-
 // `fills` arrivals complete a stage: the filling thread's expect-tx, and
 // (dK/dV) one a lane of warp 0 once its cp.async copies of row statistics
 // landed

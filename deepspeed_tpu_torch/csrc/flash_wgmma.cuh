@@ -2,7 +2,9 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): a CTA owns kOwn rows of
 // one (batch, head), two consumer warpgroups of 64, and walks the other
 // side in tiles loaded by TMA from the [B, S, H*hd] layout as it is
-// (64-column boxes, 128-byte swizzle; rows past S arrive as zeros).
+// (64-column boxes, 128-byte swizzle; rows past S arrive as zeros). The
+// block-sparse dK/dV kernel (block_sparse_attention_bwd.cu) uses the
+// raster and the products too.
 #pragma once
 
 #include "hopper_async.cuh"
@@ -73,6 +75,36 @@ __device__ __forceinline__ void walk_product(float (&acc)[HD / 2],
       wgmma_m64n64k16_rs(acc, a[j], desc);
     }
   }
+}
+
+constexpr int kBox64 = 64 * 128;          // bytes of a [64 x 64] box
+
+// Issues S = A0.B0^T and dP = A1.B1^T for one warpgroup, both [64 x 64],
+// as one wgmma group: A0, A1 its 64 owned rows (boxes `a_box` bytes
+// apart), B0, B1 a walked tile's 64 rows (boxes of kBox64 bytes); all
+// K-major over hd. The flash-attention backward and the block-sparse
+// dK/dV kernel (block_sparse_attention_bwd.cu) issue their scores so.
+template <int HD>
+__device__ __forceinline__ void score_products(float (&s)[32],
+                                               float (&dp)[32], uint32_t a0,
+                                               uint32_t a1, uint32_t b0,
+                                               uint32_t b1, uint32_t a_box) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kBox64 + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(s, wgmma_desc_kmajor(a0 + ao),
+                       wgmma_desc_kmajor(b0 + bo), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t ao = (kk / 4) * a_box + (kk % 4) * 32;
+    const uint32_t bo = (kk / 4) * kBox64 + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(dp, wgmma_desc_kmajor(a1 + ao),
+                       wgmma_desc_kmajor(b1 + bo), kk);
+  }
+  wgmma_commit();
 }
 
 // Rows row_lo and row_lo + 8 of a warp's [16 x HD] accumulator slice,

@@ -55,8 +55,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = "collective_matmul"
 _MATMUL_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 # x, wire, scales, out, M, N, k_shard, n_shards, groups, group_size, bits,
-# stream
-_GATHERED_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# x dtype, stream
+_GATHERED_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 @contextlib.contextmanager
@@ -275,7 +275,10 @@ def _gathered_dequant_matmul(x: torch.Tensor, w_wire: torch.Tensor,
     Replaces the kernel of ``_gathered_dequant_matmul`` (K12). Bound on
     the H100: operations, 2·M·(n·k_shard)·N float32 FMAs at 67 TFLOP/s
     (exact float32 products, as the reference's dot: no TF32, no bf16
-    rounding of the dequantized weight)."""
+    rounding of the dequantized weight). On CUDA: a register-blocked
+    float32 product over 128 × 128 tiles (``csrc/collective_matmul.cu``)
+    that dequantizes the wire while staging it; x is read in its own
+    dtype (float32 or bfloat16; others are copied to float32)."""
     n, groups, W = w_wire.shape
     group_size = W if wire_bits == 8 else 2 * W
     if wire_bits not in (4, 8):
@@ -295,13 +298,14 @@ def _gathered_dequant_matmul(x: torch.Tensor, w_wire: torch.Tensor,
     if w_wire.dtype != torch.int8 or s_wire.dtype != torch.float32:
         raise ValueError(f"{name}: the wire is int8 and its scales float32")
     M = x.shape[0]
-    x32 = x.to(torch.float32).contiguous()
+    # float32 and bfloat16 x are read as they are (widened in the kernel)
+    xk = (x if x.dtype in DTYPE_CODES else x.to(torch.float32)).contiguous()
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     err = kernel_function(_LIB, "gathered_dequant_matmul_launch",
                           _GATHERED_ARGS)(
-        x32.data_ptr(), w_wire.contiguous().data_ptr(),
+        xk.data_ptr(), w_wire.contiguous().data_ptr(),
         s_wire.contiguous().data_ptr(), out.data_ptr(), M, N, k_shard, n,
-        groups, group_size, wire_bits,
+        groups, group_size, wire_bits, DTYPE_CODES[xk.dtype],
         get_accelerator().current_stream(x.device).cuda_stream)
     check_launch(name, err)
     _gathered_dequant_matmul.launches += 1

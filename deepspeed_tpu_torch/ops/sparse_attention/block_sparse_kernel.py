@@ -502,8 +502,10 @@ def block_sparse_bwd_dkv(q, k, v, do, lse, delta, tables: BlockSparseTables,
     walking the transposed layout.
 
     Replaces ``_bs_dkv_kernel``. On CUDA:
-    ``csrc/block_sparse_attention_bwd.cu``. Bound: operations, 8·hd flops
-    per active pair and head."""
+    ``csrc/block_sparse_attention_bwd.cu`` (bf16 at blocks 64 and 128: TMA
+    + wgmma, P^T and dS^T rounded to bf16 in registers; float32 and blocks
+    16 and 32: the exact tile kernel). Bound: operations, 8·hd flops per
+    active pair and head."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta, tables,

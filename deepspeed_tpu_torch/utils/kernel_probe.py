@@ -14,7 +14,11 @@ name and power limit and ptxas's report. It needs a card and ``nvcc``, and runs 
 (it imports ``chip_smoke``). Probes: ``flash_fwd`` (K1 at B 4, S 2048, H
 32, hd 128, causal; K2 and K3 timed beside it), ``shard_major`` (K11 at x
 [4096, 14336] @ w [14336, 4096], 2 shards), ``ragged`` (K6's bf16 kernel
-at the serving engine's SplitFuse shapes).
+at the serving engine's SplitFuse shapes), ``gathered`` (K12 at x [4096,
+14336] bf16 against 2 int4 shards of [7168, 4096]) and ``bs_dkv`` (K19 at
+B 1, H 32, S 8192, hd 128, block 64, Fixed and BigBird). The last two also
+time the design their redesign replaced, built from the copy of its
+source in ``probe_parents/`` (``PARENTS``), in the same turns.
 """
 from __future__ import annotations
 
@@ -212,31 +216,28 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
 }
 
 
-def build_variants(source: str) -> Dict[str, ctypes.CDLL]:
-    """Compile every variant of ``csrc/<source>.cu`` at once, print ptxas's
-    lines on registers, spills and warnings; → {variant: library}."""
-    out_dir = os.path.join(bld.BUILD_DIR, "probe")
-    os.makedirs(out_dir, exist_ok=True)
+#: the designs a redesign replaced, kept as copies of their sources in
+#: ``probe_parents/`` (built with the tree's headers) so that a call can
+#: time them beside the tree's: source → what the copy holds
+PARENTS = {
+    "collective_matmul":
+        "K12 before its redesign: 128 x 128 tiles on mma.sync-layout float "
+        "products, scalar staging, float32 x, two accumulator sets",
+    "block_sparse_attention_bwd":
+        "K19 before its redesign: 64 key rows a CTA of 4 warps, mma.sync "
+        "fragments from scalar shared loads, synchronous staging, expf",
+}
+PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "probe_parents")
+
+
+def _compile(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """Compile {name: path of a .cu} at once with the tree's flags and
+    headers, print ptxas's lines on registers, spills and warnings;
+    → {name: library}."""
     nvcc = bld.find_nvcc()
-    with open(os.path.join(bld.CSRC_DIR, source + ".cu")) as f:
-        text = f.read()
     jobs = {}
-    for i, (name, subs) in enumerate(VARIANTS[source].items()):
-        body = text
-        for old, new in subs:
-            if isinstance(old, tuple):
-                i = body.find(old[0])
-                j = body.find(old[1], i)
-                if i < 0 or j < 0:
-                    raise ValueError(f"{source} ({name}): {old!r} not found")
-                body = body[:i] + new + body[j:]
-            elif old in body:
-                body = body.replace(old, new)
-            else:
-                raise ValueError(f"{source} ({name}): {old!r} not found")
-        path = os.path.join(out_dir, f"{source}_{i}.cu")
-        with open(path, "w") as f:
-            f.write(body)
+    for name, path in sources.items():
         so = path[:-3] + ".so"
         cmd = [nvcc, *bld.NVCC_FLAGS, f"-I{bld.CSRC_DIR}", "-o", so, path]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -248,7 +249,7 @@ def build_variants(source: str) -> Dict[str, ctypes.CDLL]:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error",
                                        "arning", "Compiling entry")):
-                print(f"  ptxas[{source}, {name}]: {line.strip()[:200]}")
+                print(f"  ptxas[{name}]: {line.strip()[:200]}")
         if proc.returncode:
             failed.append(f"{name}:\n{log[-3000:]}")
         else:
@@ -258,19 +259,104 @@ def build_variants(source: str) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
+def build_parents(sources) -> Dict[str, ctypes.CDLL]:
+    """The parent copies of ``sources`` (keys of PARENTS), compiled at once
+    into ``build/probe/``; → {source: library}."""
+    out_dir = os.path.join(bld.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for source in sources:
+        path = os.path.join(out_dir, f"{source}_parent.cu")
+        with open(os.path.join(PARENT_DIR, source + ".cu")) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(text)
+        paths[f"{source} parent"] = path
+    return {name[:-len(" parent")]: lib
+            for name, lib in _compile(paths).items()}
+
+
+def parent_gathered(lib):
+    """K12's parent design as its wrapper called it (x copied to float32,
+    one launch): ``(x, w_wire, s_wire, bits, k_shard, N, out_dtype)`` →
+    ``[M, N]``."""
+    fn = lib.gathered_dequant_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w_wire, s_wire, bits, k_shard, N, out_dtype):
+        n, groups, W = w_wire.shape
+        x32 = x.to(torch.float32).contiguous()
+        out = torch.empty(x.shape[0], N, dtype=torch.float32,
+                          device=x.device)
+        err = fn(x32.data_ptr(), w_wire.data_ptr(), s_wire.data_ptr(),
+                 out.data_ptr(), x.shape[0], N, k_shard, n, groups,
+                 W if bits == 8 else 2 * W, bits,
+                 torch.cuda.current_stream().cuda_stream)
+        bld.check_launch("parent gathered_dequant_matmul", err)
+        return out.to(out_dtype)
+
+    return call
+
+
+def build_variants(source: str, variants=None) -> Dict[str, ctypes.CDLL]:
+    """Compile every variant of ``csrc/<source>.cu`` (``variants``, by
+    default ``VARIANTS[source]``) at once; → {variant: library}."""
+    out_dir = os.path.join(bld.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(bld.CSRC_DIR, source + ".cu")) as f:
+        text = f.read()
+    paths = {}
+    for i, (name, subs) in enumerate((variants or VARIANTS[source]).items()):
+        body = text
+        for old, new in subs:
+            if isinstance(old, tuple):
+                lo = body.find(old[0])
+                hi = body.find(old[1], lo)
+                if lo < 0 or hi < 0:
+                    raise ValueError(f"{source} ({name}): {old!r} not found")
+                body = body[:lo] + new + body[hi:]
+            elif old in body:
+                body = body.replace(old, new)
+            else:
+                raise ValueError(f"{source} ({name}): {old!r} not found")
+        path = os.path.join(out_dir, f"{source}_{i}.cu")
+        with open(path, "w") as f:
+            f.write(body)
+        paths[name] = path
+    return _compile(paths)
+
+
+def swapped(source, lib, fn):
+    """``fn`` with ``lib`` standing in for the tree's library of
+    ``source`` while it runs (the wrappers look their launcher up on
+    every call)."""
+    def call():
+        libs = bld.load_kernels()
+        tree = libs[source]
+        libs[source] = lib
+        try:
+            return fn()
+        finally:
+            libs[source] = tree
+    return call
+
+
+def time_in_turns(cs, fns, iters):
+    """{name: fn} → {name: [ms, ms, ms]}: each ``fn``'s median ms
+    (``chip_smoke.cuda_ms``), in order, in reverse, in order again."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for name in names + names[::-1] + names:
+        times[name].append(cs.cuda_ms(torch, fns[name], iters))
+    return times
+
+
 def _turns(cs, source, libs, fn, iters):
     """``fn``'s median ms with each variant swapped in, in turns."""
-    names = list(libs)
-    order = names + names[::-1] + names
-    times = {n: [] for n in names}
-    tree = bld.load_kernels()[source]
-    try:
-        for name in order:
-            bld.load_kernels()[source] = libs[name]
-            times[name].append(cs.cuda_ms(torch, fn, iters))
-    finally:
-        bld.load_kernels()[source] = tree
-    return times
+    return time_in_turns(cs, {n: swapped(source, lib, fn)
+                              for n, lib in libs.items()}, iters)
 
 
 def probe_flash_fwd(cs):
@@ -441,8 +527,133 @@ def probe_ragged(cs):
         print(f"time K6 {bname} (the tree's, device): {dev:.4f} ms")
 
 
+_K12_ONE = ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")
+
+
+def _k12_unroll(n):
+    return ("#pragma unroll 2\n    for (int kq = 0; kq < gd::kBK; ++kq) {",
+            f"#pragma unroll {n}\n    for (int kq = 0; kq < gd::kBK; ++kq) {{")
+
+
+# K12's variants (csrc/collective_matmul.cu): CTAs an SM, the k loop's unroll
+GATHERED_VARIANTS: Dict[str, List[Edit]] = {
+    "2 CTAs an SM, k unrolled 2": [],
+    "2 CTAs an SM, k unrolled 4": [_k12_unroll(4)],
+    "2 CTAs an SM, k not unrolled": [_k12_unroll(1)],
+    "1 CTA an SM, k unrolled 2": [_K12_ONE],
+    "1 CTA an SM, k unrolled 16": [_K12_ONE, _k12_unroll(16)],
+}
+# K19's variants (csrc/block_sparse_attention_bwd.cu): the tree's alone
+# (PERF.md: the orders, raster groups and turns measured before)
+BS_DKV_VARIANTS: Dict[str, List[Edit]] = {
+    "two warpgroups side by side, raster groups of 16": [],
+}
+
+
+def probe_gathered(cs):
+    """K12: each variant against the plain version on the main shapes
+    (int4 and int8 wires) and on ``chip_smoke.K12_EDGES``, two calls bit
+    for bit; then the variants and the parent design timed in turns at x
+    [4096, 14336] bf16 against 2 int4 shards of [7168, 4096], the int8
+    wire and the yardstick (float32 ``torch.matmul`` by the weight already
+    dequantized, TF32 off) beside them."""
+    from ..kernels import fused_collective_matmul as fcm
+    from ..ops.quantizer import quantizer as qz
+
+    source = "collective_matmul"
+    libs = build_variants(source, GATHERED_VARIANTS)
+    parent = parent_gathered(build_parents([source])[source])
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 93)
+    bf16 = torch.bfloat16
+    M, K, N = cs.WORLD_SPEC["gemm"]
+    n = cs.WORLD_SIZE
+    kk = K // n
+    x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+    w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5).to(bf16)
+    wires = {bits: cs.k12_wires(torch, qz, w, n, bits, cs.QUANT_GROUP)
+             for bits in (4, 8)}
+    for name, lib in libs.items():
+        def checks():
+            for bits, (wst, sst) in wires.items():
+                cs.check_gathered(torch, fcm, f"[{name}] K12 int{bits} main "
+                                  f"shapes", x, wst, sst, bits, kk, N, bf16)
+            for edge in cs.K12_EDGES:
+                cs.check_gathered_edge(torch, fcm, qz, gen, *edge)
+        swapped(source, lib, checks)()
+    fns = {name: swapped(source, lib, lambda: fcm._gathered_dequant_matmul(
+        x, *wires[4], 4, kk, N, bf16)) for name, lib in libs.items()}
+    fns["parent design"] = lambda: parent(x, *wires[4], 4, kk, N, bf16)
+    for name, ts in time_in_turns(cs, fns, 5).items():
+        print(f"time K12 int4 [{name}]: "
+              + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+    int8 = cs.cuda_ms(torch, lambda: fcm._gathered_dequant_matmul(
+        x, *wires[8], 8, kk, N, bf16), 10)
+    print(f"time K12 int8 (the tree's): {int8:.4f} ms")
+    deq = cs.k12_dequantized(torch, fcm, *wires[4], 4, kk, N)
+    x32 = x.float()
+
+    def yardstick():
+        with fcm._full_float32():
+            return torch.matmul(x32, deq)
+
+    print(f"time yardstick, float32 torch.matmul by the dequantized weight "
+          f"(no dequantize): {cs.cuda_ms(torch, yardstick, 10):.4f} ms")
+
+
+def probe_bs_dkv(cs):
+    """K19: each variant against the plain version on
+    ``chip_smoke.phase_sparse_kernel_checks``' batches and at the main
+    shape (B 1, H 32, S 8192, hd 128, bf16, block 64; Fixed and BigBird),
+    two calls bit for bit; then the variants and the parent design timed
+    in turns on both layouts, K16-K18 beside them."""
+    from ..ops.sparse_attention import block_sparse_kernel as bs
+
+    source = "block_sparse_attention_bwd"
+    libs = build_variants(source, BS_DKV_VARIANTS)
+    # the parent's C entry point is the tree's: swapped in like a variant
+    libs["parent design"] = build_parents([source])[source]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 94)
+    m = cs.SPARSE_MAIN
+    B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
+    q, k, v, do = cs.sparse_inputs(torch, gen, B, H, S, hd, torch.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    layouts = {name: bs.prepare_layout(cfg.make_layout(S), m["block"], H,
+                                       "cuda")
+               for name, cfg in cs.sparse_configs(H).items()}
+    for name, lib in libs.items():
+        if name == "parent design":
+            continue
+
+        def checks():
+            cs.phase_sparse_kernel_checks(torch)
+            for lname, tables in layouts.items():
+                cs.check_sparse(torch, bs, f"[{name}] bf16 main shapes "
+                                f"{lname}", q, k, v, do, tables,
+                                cs.FLASH_BF16_TERMS, cs.BF16_RTOL,
+                                cs.BF16_ATOL)
+        swapped(source, lib, checks)()
+    for lname, tables in layouts.items():
+        o, lse = bs.block_sparse_fwd(q, k, v, tables, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        fns = {name: swapped(source, lib, lambda: bs.block_sparse_bwd_dkv(
+            q, k, v, do, lse, delta, tables, scale))
+            for name, lib in libs.items()}
+        for name, ts in time_in_turns(cs, fns, 10).items():
+            print(f"time K19 {lname} [{name}]: "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+        for kname, fn in (
+                ("K16", lambda: bs.block_sparse_fwd(q, k, v, tables, scale)),
+                ("K17", lambda: bs.block_sparse_fwd_nolse(q, k, v, tables,
+                                                          scale)),
+                ("K18", lambda: bs.block_sparse_bwd_dq(
+                    q, k, v, do, lse, delta, tables, scale))):
+            print(f"time {kname} {lname} (the tree's): "
+                  f"{cs.cuda_ms(torch, fn, 10):.4f} ms")
+
+
 PROBES = {"flash_fwd": probe_flash_fwd, "shard_major": probe_shard_major,
-          "ragged": probe_ragged}
+          "ragged": probe_ragged, "gathered": probe_gathered,
+          "bs_dkv": probe_bs_dkv}
 
 
 def main(argv: List[str]) -> int:

@@ -12,7 +12,8 @@ setup(
                                     "deepspeed_tpu_torch",
                                     "deepspeed_tpu_torch.*"]),
     package_data={"deepspeed_tpu": ["csrc/*.cpp"],
-                  "deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                          "utils/probe_parents/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.5",

@@ -305,3 +305,139 @@ def test_padded_matmul_operands_match_unpadded_and_pallas(K, N):
                                   block_m=16, block_n=16)
     terms = (np.abs(x) @ np.abs(w), K)
     _within(out.numpy(), np.asarray(ref), terms, "K11 padded")
+
+
+# --------------------------------------------------------------------- #
+# K12's walk and staging (csrc/collective_matmul.cu), emulated
+# --------------------------------------------------------------------- #
+K12_TILE, K12_STAGE, K12_RUN = 128, 16, 8    # gd::kBN, gd::kBK, a run
+
+
+def _biased(u):
+    """uint8 values b → float32 2^23 + b, built from bits as the kernel's
+    byte permute builds them (0x4B000000 | b)."""
+    return (np.uint32(0x4B000000) | u.astype(np.uint32)).view(np.float32)
+
+
+def _k12_stage_weight(wire, scales, bits, gs, k, N, shard_offset):
+    """One shard's weight [k, N] as the kernel stages it from its wire
+    (``wire`` int8 [groups, W] flat in memory at byte ``shard_offset`` of
+    the stacked wires, ``scales`` [groups, 1]): each thread's run of 8
+    columns of a row (tile columns n0 + 8j) finds its group with one
+    division; a run inside one group (int4: one half of it) whose bytes
+    start 8-byte aligned is read as 8 bytes and turned to floats as
+    2^23 + (b ^ 0x80) − (2^23 + 128) (int8) or 2^23 + (nibble ^ 8) −
+    (2^23 + 8) (int4), times the flushed scale; any other run element by
+    element. → (weight, fast runs, element-wise runs)."""
+    flat = wire.reshape(-1)
+    W = wire.shape[1]
+    half = gs // 2
+    s = scales.reshape(-1).astype(np.float32)
+    s = np.where(np.abs(s) < np.float32(1.17549435e-38), np.float32(0), s)
+    out = np.zeros((k, N), np.float32)
+    fast = slow = 0
+    for kk in range(k):
+        for c0 in range(0, -(-N // K12_TILE) * K12_TILE, K12_RUN):
+            if c0 >= N:
+                continue
+            e0 = kk * N + c0
+            g, p0 = divmod(e0, gs)
+            mode, off = 0, None
+            if c0 + K12_RUN <= N:
+                if bits == 8 and p0 + 8 <= gs:
+                    mode, off = 1, g * W + p0
+                elif bits == 4 and p0 + 8 <= half:
+                    mode, off = 1, g * W + p0
+                elif bits == 4 and p0 >= half and p0 + 8 <= gs:
+                    mode, off = 2, g * W + p0 - half
+            if mode and (shard_offset + off) % 8 == 0:
+                b = flat[off:off + 8].view(np.uint8)
+                if bits == 8:
+                    q = _biased(b ^ np.uint8(0x80)) - np.float32(8388736.0)
+                else:
+                    nib = (b >> 4) if mode == 2 else (b & np.uint8(0xF))
+                    q = _biased(nib ^ np.uint8(8)) - np.float32(8388616.0)
+                out[kk, c0:c0 + 8] = q * s[g]
+                fast += 1
+                continue
+            slow += 1
+            for c in range(c0, min(c0 + K12_RUN, N)):
+                gg, p = divmod(kk * N + c, gs)
+                if bits == 8:
+                    qv = int(flat[gg * W + p])
+                elif p < half:
+                    qv = (int(flat[gg * W + p]) << 28 & 0xFFFFFFFF)
+                    qv = (qv ^ 0x80000000) - 0x80000000 >> 28
+                else:
+                    qv = int(flat[gg * W + p - half]) >> 4
+                out[kk, c] = np.float32(qv) * s[gg]
+    return out, fast, slow
+
+
+def _k12_walk(x, weights, k):
+    """out as the kernel sums it: per shard, its k in 16-deep stages, each
+    element's sum in k order (float32; the card fuses each product into
+    its sum), then out = 0 + shard 0's sum, out += each next shard's, in
+    shard order (the running sum lives in out)."""
+    out = None
+    for r, w in enumerate(weights):
+        xr = x[:, r * k:(r + 1) * k]
+        part = np.zeros((x.shape[0], w.shape[1]), np.float32)
+        for k0 in range(0, -(-k // K12_STAGE) * K12_STAGE, K12_STAGE):
+            for kk in range(k0, min(k0 + K12_STAGE, k)):
+                part = part + np.outer(xr[:, kk], w[kk]).astype(np.float32)
+        out = np.float32(0) + part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("x_dtype", ("f32", "bf16"))
+@pytest.mark.parametrize("bits_,gs,k,n_cols,n", (
+    (4, 200, 100, 136, 3),      # rows straddle groups; int4 halves of 100
+    (8, 200, 100, 136, 3),
+    (4, 256, 100, 136, 2),      # k·N off the group grid
+    (8, 256, 72, 203, 3),       # N odd: runs off 8-byte alignment
+    (4, 200, 72, 203, 2),
+    (8, 256, 24, 40, 2),
+))
+def test_k12_walk_and_staging_emulation(bits_, gs, k, n_cols, n, x_dtype):
+    """K12's staging of the wire (``_k12_stage_weight``: the run-wise
+    group lookup and byte-to-float conversion, element by element where
+    a run crosses a group, an int4 half or 8-byte alignment) equals the
+    JAX ``unpack_dequant_wire_values`` bit for bit, and its walk
+    (``_k12_walk``) stays within n·k·2^-23 of the terms (|x| @ |W|) of
+    the JAX ``_gathered_dequant_matmul`` in interpret mode; x float32 or
+    bf16 values (the kernel widens bf16 exactly)."""
+    rng = np.random.default_rng(1000 * bits_ + gs + k + n_cols + n)
+    rows = 150                                  # off the 128-row tile
+    x = rng.standard_normal((rows, n * k)).astype(np.float32)
+    if x_dtype == "bf16":
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+    wires = [jq.quant_pack_wire(jnp.asarray(
+        rng.standard_normal(k * n_cols).astype(np.float32)), bits_, gs)
+        for _ in range(n)]
+    jw = jnp.stack([a for a, _ in wires])
+    js = jnp.stack([b for _, b in wires])
+    weights, fast, slow = [], 0, 0
+    for r in range(n):
+        w_r, f, s_ = _k12_stage_weight(
+            np.asarray(jw[r]), np.asarray(js[r]), bits_, gs, k, n_cols,
+            r * jw.shape[1] * jw.shape[2])
+        want = np.asarray(jfcm.unpack_dequant_wire_values(
+            jw[r], js[r], bits_)).reshape(-1)[:k * n_cols].reshape(k, n_cols)
+        np.testing.assert_array_equal(w_r.view(np.uint32),
+                                      want.view(np.uint32))
+        weights.append(w_r)
+        fast, slow = fast + f, slow + s_
+    # runs cross int4 halves of 100 and rows of odd N, and only those
+    assert fast > 0
+    assert (slow > 0) == ((bits_ == 4 and gs // 2 % 8 != 0)
+                          or n_cols % 8 != 0)
+    got = _k12_walk(x, weights, k)
+    ref = jfcm._gathered_dequant_matmul(jnp.asarray(x), jw, js, bits_, k,
+                                        n_cols, jnp.float32)
+    terms = np.abs(x).astype(np.float64) @ np.abs(
+        np.concatenate(weights)).astype(np.float64)
+    limit = n * k * 2.0 ** -23 * terms + 1e-30
+    worst = float((np.abs(got.astype(np.float64) - np.asarray(ref))
+                   / limit).max())
+    assert worst <= 1.0, f"K12 walk: {worst:.3f} x n·k·2^-23 of the terms"

@@ -395,3 +395,148 @@ def test_padded_head_dim_matches_unpadded_and_pallas(hd):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(do))):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
+
+
+# --------------------------------------------------------------------- #
+# K19's bf16 walk at blocks 64 and 128 (csrc/block_sparse_attention_bwd.cu)
+# --------------------------------------------------------------------- #
+DKV_KEYS = DKV_WALK = 64     # keys a CTA owns, query rows of a walked tile
+
+
+def _emulate_dkv(q, k, v, do, lse, delta, tables, scale, rounding):
+    """dK, dV as the bf16 kernel walks them: a CTA owns 64 keys of one
+    (batch, head) and walks its k-block's transposed-layout list, block /
+    64 query tiles of 64 rows an entry; warpgroup g takes the tiles n with
+    n % 2 == g and sums them tile after tile in float32; the two sums are
+    folded at the end, dK = dK_0 + dK_1 (the same for dV). Rows past S
+    read as zeros (TMA's fill), and so do their lse and delta (cp.async's);
+    only the tail tile masks queries at or past S (every other tile is
+    asserted to need no mask). With ``rounding`` P^T and dS^T are rounded
+    to bf16 before the second products, and each output once. The order
+    in which CTAs run changes no sum."""
+    B, H, S, hd = q.shape
+    blk = tables.block
+    per = blk // DKV_WALK
+    rnd = (lambda x: x.bfloat16().float()) if rounding else (lambda x: x)
+    rows = tables.nq * blk + DKV_WALK
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((rows - S,) + tuple(x.shape[1:]))])
+
+    dk = torch.zeros(B, H, S, hd)
+    dv = torch.zeros_like(dk)
+    LH = tables.num_layout_heads
+    rp, cols = tables.row_ptr_t.numpy(), tables.cols_t.numpy()
+    for b in range(B):
+        for h in range(H):
+            qb, kb, vb, dob = (pad(x[b, h].float()) for x in (q, k, v, do))
+            lb, db = pad(lse[b, h]), pad(delta[b, h])
+            lh = 0 if LH == 1 else h
+            for kt in range(tables.nk * per):
+                k0 = kt * DKV_KEYS
+                if k0 >= S:
+                    continue
+                row = lh * tables.nk + k0 // blk
+                entries = cols[rp[row]:rp[row + 1]]
+                tiles = [c * blk + DKV_WALK * i for c in entries
+                         for i in range(per)]
+                sums = []
+                for g in (0, 1):
+                    acc_k = torch.zeros(DKV_KEYS, hd)
+                    acc_v = torch.zeros(DKV_KEYS, hd)
+                    for q0 in tiles[g::2]:
+                        qs = torch.arange(q0, q0 + DKV_WALK)
+                        mask = (qs < S)[None].expand(DKV_KEYS, -1)
+                        edge = q0 + DKV_WALK > S
+                        if not edge:
+                            assert mask.all()
+                        st = kb[k0:k0 + DKV_KEYS] @ qb[q0:q0 + DKV_WALK].T
+                        dpt = vb[k0:k0 + DKV_KEYS] @ dob[q0:q0 + DKV_WALK].T
+                        lt = lb[q0:q0 + DKV_WALK][None]
+                        dt = db[q0:q0 + DKV_WALK][None]
+                        ok = mask if edge else torch.ones_like(mask)
+                        p = torch.where(ok, torch.exp(st * scale - lt), 0.0)
+                        ds = torch.where(ok, p * (dpt - dt) * scale, 0.0)
+                        acc_v += rnd(p) @ dob[q0:q0 + DKV_WALK]
+                        acc_k += rnd(ds) @ qb[q0:q0 + DKV_WALK]
+                    sums.append((acc_k, acc_v))
+                keys = slice(k0, min(k0 + DKV_KEYS, S))
+                n = keys.stop - k0
+                dk[b, h, keys] = (sums[0][0] + sums[1][0])[:n]
+                dv[b, h, keys] = (sums[0][1] + sums[1][1])[:n]
+    return rnd(dk), rnd(dv)
+
+
+# (block, hd, layout, per-head, S off the grid, an emptied row)
+DKV_CASES = [
+    (64, 64, 0, False, False, False),
+    (64, 128, 0, True, True, False),
+    (64, 64, 1, False, True, True),
+    (64, 128, 1, True, False, False),
+    (128, 64, 0, False, True, True),
+    (128, 128, 1, False, False, False),
+    (128, 64, 2, True, True, False),
+    (64, 64, 3, False, True, False),
+]
+_JAX_DKV = {}
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("case", DKV_CASES,
+                         ids=[f"blk{c[0]}-hd{c[1]}-{LAYOUTS[c[2]][0][:-14]}"
+                              f"{'-per_head' if c[3] else ''}"
+                              f"{'-off_grid' if c[4] else ''}"
+                              f"{'-empty_row' if c[5] else ''}"
+                              for c in DKV_CASES])
+def test_bf16_dkv_walk_emulation(case, rounding):
+    """K19's bf16 walk on the CPU (``_emulate_dkv``) against the JAX
+    ``_bs_dkv_kernel`` in interpret mode (dK, dV of ``jax.vjp`` of the JAX
+    ``block_sparse_attention``): within 2e-5 (abs and rel) without
+    rounding; with P^T and dS^T rounded to bf16 and inputs rounded to
+    bf16 values, within the limit ``chip_smoke.py`` holds the card's K19
+    to (``FLASH_BF16_TERMS`` of the terms' magnitudes on top of two
+    output ulps). B 1, H 2; Fixed, BigBird, BSLongformer and Variable
+    layouts, shared and per head, S on and off the block grid, an emptied
+    q-block row (a k-block whose list loses an entry)."""
+    import chip_smoke
+
+    blk, hd, li, per_head, off, empty = case
+    name, kw = LAYOUTS[li]
+    nb = 6 if blk == 64 else 4
+    S = nb * blk - (5 if off else 0)
+    Hh = 2
+    cfg = getattr(port_sc, name)(num_heads=Hh, block=blk,
+                                 different_layout_per_head=per_head, **kw)
+    layout = cfg.make_layout(nb * blk)
+    if empty:
+        layout[:, 1] = False
+    key = case
+    rng = np.random.default_rng(3000 + 7 * li + blk + hd + S)
+    q, k, v, do = (rng.normal(size=(1, Hh, S, hd)).astype(np.float32)
+                   for _ in range(4))
+    q, k, v, do = (torch.from_numpy(x).bfloat16().float().numpy()
+                   for x in (q, k, v, do))
+    if key not in _JAX_DKV:
+        _, vjp = jax.vjp(lambda a, b, c: jax_bs.block_sparse_attention(
+            a, b, c, layout, blk), *map(jnp.asarray, (q, k, v)))
+        _JAX_DKV[key] = [np.asarray(g) for g in vjp(jnp.asarray(do))[1:]]
+    want = _JAX_DKV[key]
+    tables = bs.prepare_layout(layout, blk, Hh, "cpu")
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = bs.block_sparse_fwd_reference(tq, tk, tv, tables, scale)
+    delta = (tdo * o).sum(-1)
+    got = _emulate_dkv(tq, tk, tv, tdo, lse, delta, tables, scale, rounding)
+    if not rounding:
+        for g_, w_ in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), w_, atol=2e-5, rtol=2e-5)
+        return
+    _, _, dsq, pdo = chip_smoke.sparse_terms(torch, bs, tq, tk, tv, tdo, lse,
+                                             delta, tables, scale)
+    for nm, g_, w_, t_ in zip(("dK", "dV"), got, want, (dsq, pdo)):
+        w_ = torch.from_numpy(np.array(w_))
+        limit = (chip_smoke.BF16_ATOL + chip_smoke.BF16_RTOL * w_.abs()
+                 + chip_smoke.FLASH_BF16_TERMS * t_)
+        worst = float(((g_ - w_).abs() / limit).max())
+        assert worst <= 1.0, f"{nm}: {worst:.3f}x chip_smoke's limit"
+
