@@ -13,10 +13,13 @@ non-zero before the last line is printed:
      and ptxas report,
      with the registers, spills and static shared memory of the kernels
      redesigned for Hopper (``REDESIGNED``: K6, K7, K4, K2, K3, K1, K11,
-     K12 and K19); a spill in one of them, or a wgmma serialization
-     warning outside K4's (there since its redesign), fails the run; and
-     build the designs K12's and K19's redesign replaced from their copies
-     in ``deepspeed_tpu_torch/utils/probe_parents/`` (timing only);
+     K12, K16/K17, K18 and K19); a spill in one of them, or a wgmma
+     serialization warning outside K4's (there since its redesign), fails
+     the run; the hd-256 instances of the exact tile kernels (K1-K3,
+     K16-K19) are logged with their spills, not gated; and build the
+     designs K12's, K16/K17's, K18's and K19's redesigns replaced from
+     their copies in ``deepspeed_tpu_torch/utils/probe_parents/`` (timing
+     only);
   3. hold each kernel against its plain PyTorch version on the card: at the
      serving path's shapes (hd 128, 8 KV heads, G 4, page 64, bf16; K6's
      bf16 kernel within two ulps plus FLASH_BF16_TERMS of |P|@|V|, since
@@ -101,8 +104,11 @@ non-zero before the last line is printed:
      against their plain versions on 16 edge batches: float32 and bf16,
      block 16, 32, 64 and 128, hd 64 and 128, each layout class in turn,
      per-head layouts, an emptied q-block row (O = 0, LSE = -1e30 exactly)
-     and S off the block grid (K19 twice on each, bit for bit); and at hd
-     16, 80 and 96 (zero-padded);
+     and S off the block grid (K16, K18 and K19 twice on each, bit for
+     bit; K17's O equal to K16's); and at hd 16, 80 and 96 (zero-padded);
+     then K1-K3 and K16-K19 at hd 160 and 256 (the exact tile kernels, 160
+     zero-padded) in bf16 and float32 against their plain versions, and
+     each timed at hd 256 in bf16 (timing only);
  14. the sparse-attention path: ``SparseSelfAttention(cfg)(q, k, v,
      use_kernel=True)`` at llama3-8B attention width (B 1, H 32, S 8192,
      hd 128, bf16, block 64): under ``torch.no_grad()`` with the Fixed
@@ -111,13 +117,15 @@ non-zero before the last line is printed:
      K16, K18 and K19 once each a step; the serving output against the
      masked-dense path (8 heads at a time), the training gradients bitwise
      equal to the kernels called directly, and K16-K19 against their plain
-     versions at this width; K19 against a planted fault (one q-block left
-     out of the longest list), which must read at least 10x its limits;
+     versions at this width; K16, K18 and K19 against planted faults (one
+     k-block left out of the shortest layout list of two or more for O and
+     dQ, one q-block out of the shortest transposed list for dK and dV),
+     which must read at least 10x their limits;
  15. time K16-K19 at that shape beside their bound, their plain versions,
      SDPA with the expanded boolean token mask (timing only) and K1's
-     causal dense forward (for scale); K19's parent design on both layouts
-     and K19 at the configs' default block 16 (the kept exact path),
-     timing only; print the sparse results' line and
+     causal dense forward (for scale); the parent designs of K16-K19 on
+     both layouts and K19 at the configs' default block 16 (the kept exact
+     path), timing only; print the sparse results' line, the hd-256 line and
      the ``kernels`` JSON line (serving, training, optimizer, sparse and
      quantizer kernels, 18 in all);
  16. (after phase 13) hold the quantizer kernels against their plain
@@ -546,10 +554,28 @@ def ptxas_report(log_text, names):
     return out
 
 
+def ptxas_wide_heads(log_text, names):
+    """{"<kernel> <dtype> tile <rows>": {"registers", "spill_bytes",
+    "stack_bytes", "smem_bytes"}} from ``nvcc -Xptxas -v`` output, for
+    each hd-256 instance (``Li256E`` in its mangled name) of the entry
+    functions named in ``names``."""
+    import re
+
+    out = {}
+    for fn in re.findall(r"Compiling entry function '(\S+)'", log_text):
+        name = next((n for n in names if f"{n}I" in fn), None)
+        tile = re.search(r"Li256ELi(\d+)E", fn)
+        if name and tile:
+            dt = "bf16" if "nv_bfloat16" in fn else "f32"
+            out[f"{name} {dt} tile {tile.group(1)}"] = ptxas_report(
+                log_text, (fn,))[fn]
+    return out
+
+
 # the kernels redesigned for Hopper (mma.sync + cp.async K6, split-context
-# K7, TMA + wgmma K4, K2, K3, K1, K11 and K19, the register-blocked float32
-# K12), by source; their dynamic shared memory comes on top of ptxas's
-# static figure
+# K7, TMA + wgmma K4, K2, K3, K1, K11, K16/K17, K18 and K19, the
+# register-blocked float32 K12), by source; their dynamic shared memory
+# comes on top of ptxas's static figure
 REDESIGNED = {
     "ragged_paged_attention": ("ragged_paged_mma_kernel",),
     "decode_paged_attention": ("decode_split_kernel", "decode_merge_kernel"),
@@ -559,7 +585,9 @@ REDESIGNED = {
     "flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
     "collective_matmul": ("shard_major_matmul_wgmma_kernel",
                           "gathered_dequant_matmul_kernel"),
-    "block_sparse_attention_bwd": ("bs_dkv_wgmma_kernel",),
+    "block_sparse_attention_fwd": ("bs_fwd_wgmma_kernel",),
+    "block_sparse_attention_bwd": ("bs_dq_wgmma_kernel",
+                                   "bs_dkv_wgmma_kernel"),
 }
 # a redesigned kernel's row in the kernels line, where that is not its
 # source's name
@@ -568,10 +596,22 @@ REDESIGNED_ROWS = {"flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                    "shard_major_matmul_wgmma_kernel": "shard_major_matmul",
                    "gathered_dequant_matmul_kernel":
                        "gathered_dequant_matmul",
+                   "bs_fwd_wgmma_kernel": "block_sparse_fwd",
+                   "bs_dq_wgmma_kernel": "block_sparse_bwd_dq",
                    "bs_dkv_wgmma_kernel": "block_sparse_bwd_dkv"}
-# the designs K12's and K19's redesign replaced, built from their copies in
-# deepspeed_tpu_torch/utils/probe_parents/ (kernel_probe.build_parents) and
-# timed beside the tree's: {source: library}
+# the exact tile kernels that carry hd 256 (K1-K3, K16-K19), by source:
+# their hd-256 instances' registers and spills are logged, not gated
+WIDE_HEAD_KERNELS = {
+    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+    "block_sparse_attention_fwd": ("bs_fwd_kernel",),
+    "block_sparse_attention_bwd": ("bs_dq_kernel", "bs_dkv_kernel"),
+}
+# the designs K12's, K16/K17's, K18's and K19's redesigns replaced, built
+# from their copies in deepspeed_tpu_torch/utils/probe_parents/
+# (kernel_probe.build_parents) and timed beside the tree's: {source:
+# library} (the block_sparse_attention_bwd copy holds K19's design and
+# K18's, which K19's redesign left as it was)
 _PARENT_LIBS = {}
 
 
@@ -609,6 +649,15 @@ def phase_build(torch):
             f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
             f"bytes stack, {rec['smem_bytes']} bytes static smem")
         check(rec["spill_bytes"] == 0, f"ptxas spilled {name}")
+    # the exact kernels at hd 256 may spill (a thread holds 128 or 256
+    # accumulator floats): logged, not gated
+    for src, names in WIDE_HEAD_KERNELS.items():
+        wide = ptxas_wide_heads(builder.build_log.get(src, ""), names)
+        for name, rec in wide.items():
+            log(f"ptxas hd 256 {name}: {rec['registers']} registers, "
+                f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
+                f"bytes stack")
+            report[f"hd256 {name}"] = rec
     for src in REDESIGNED:
         if "serialized" not in builder.build_log.get(src, ""):
             continue
@@ -2379,7 +2428,8 @@ def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
     """K16, K17, K18 and K19 against their plain versions on one batch.
     The backward kernels get the plain forward's LSE and delta, so each
     check sees one kernel; K17's O must equal K16's bit for bit (one kernel
-    body). → max abs error by kernel name."""
+    body), and K16, K18 and K19 must give the same bits in two calls.
+    → max abs error by kernel name."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o_ref, lse_ref = bs.block_sparse_fwd_reference(q, k, v, tables, scale)
     delta = (do.float() * o_ref.float()).sum(-1)
@@ -2400,6 +2450,10 @@ def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
     o2 = bs.block_sparse_fwd_nolse(q, k, v, tables, scale)
     check(torch.equal(o2, o), f"block_sparse_fwd_nolse {tag}: O differs "
           f"from block_sparse_fwd's")
+    o3, lse3 = bs.block_sparse_fwd(q, k, v, tables, scale)
+    check(torch.equal(o3, o) and torch.equal(lse3, lse),
+          f"block_sparse_fwd {tag}: two calls differ")
+    del o3, lse3
     errs["block_sparse_fwd_nolse"] = float((o2.float() - o_ref.float())
                                            .abs().max())
     dq_ref = bs.block_sparse_bwd_dq_reference(q, k, v, do, lse_ref, delta,
@@ -2408,6 +2462,9 @@ def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
     errs["block_sparse_bwd_dq"] = _compare_limit(
         torch, f"block_sparse_bwd_dq {tag}", dq, dq_ref, lim(dq_ref, dsk),
         why + "|dS|@|K|")
+    check(torch.equal(dq, bs.block_sparse_bwd_dq(q, k, v, do, lse_ref, delta,
+                                                 tables, scale)),
+          f"block_sparse_bwd_dq {tag}: two calls differ")
     dk_ref, dv_ref = bs.block_sparse_bwd_dkv_reference(
         q, k, v, do, lse_ref, delta, tables, scale)
     dk, dv = bs.block_sparse_bwd_dkv(q, k, v, do, lse_ref, delta, tables,
@@ -2424,45 +2481,72 @@ def check_sparse(torch, bs, tag, q, k, v, do, tables, terms, rtol, atol):
     return errs, (o, lse_ref)
 
 
-def check_bs_dkv_faults(torch, bs, tag, q, k, v, do, tables):
-    """K19 against a planted fault from the plain math, read against the
-    limits ``check_sparse`` holds it to: dK and dV with the last q-block
-    left out of the shortest transposed-layout list of two or more (a CTA
-    that skipped a list entry, block_sparse_attention_bwd.cu's walk),
-    which must read at least 10x the limits. (Out of a list of 125, the
-    longest of the Fixed layout, one entry moves dK by ~1/125 and read
-    3.8-5.5x.) → the fault's reading (x the limit)."""
+def _dropped_entry(bs, tables, transposed):
+    """A copy of ``tables`` with the last entry left out of the shortest
+    list of two or more: of the layout's rows (K16-K18 walk them) or of
+    the transposed layout's (K19). → (tables, what was left out)."""
     import numpy as np
 
+    layout = tables.layout.copy()
+    lengths = layout.sum(axis=1 if transposed else 2)   # [LH, n] lengths
+    lengths = np.where(lengths >= 2, lengths, layout.shape[1] + 1)
+    lh, r = np.unravel_index(int(lengths.argmin()), lengths.shape)
+    if transposed:
+        c = int(np.nonzero(layout[lh, :, r])[0][-1])
+        layout[lh, c, r] = False
+        what = f"q-block {c} left out of k-block {r}'s list"
+    else:
+        c = int(np.nonzero(layout[lh, r])[0][-1])
+        layout[lh, r, c] = False
+        what = f"k-block {c} left out of q-block {r}'s list"
+    return bs.BlockSparseTables(layout, tables.block, tables.device), what
+
+
+def check_bs_faults(torch, bs, tag, q, k, v, do, tables):
+    """K16, K18 and K19 against planted faults from the plain math, read
+    against the limits ``check_sparse`` holds them to: O (K16) and dQ
+    (K18) with one k-block left out of the shortest layout list of two or
+    more, dK and dV (K19) with one q-block left out of the shortest
+    transposed-layout list of two or more (a CTA that skipped a list
+    entry, the kernels' walks). Each must read at least 10x its limit.
+    (Out of a list of 125, the longest of the Fixed layout, one entry
+    moves dK by ~1/125 and read 3.8-5.5x.) → {kernel: the fault's reading
+    (x the limit)}."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = bs.block_sparse_fwd_reference(q, k, v, tables, scale)
     delta = (do.float() * o.float()).sum(-1)
-    del o
-    _, _, dsq, pdo = sparse_terms(torch, bs, q, k, v, do, lse, delta,
-                                  tables, scale)
-    ref_k, ref_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                     tables, scale)
-    layout = tables.layout.copy()
-    lengths = layout.sum(axis=1)                 # [LH, nk]: list lengths
-    lengths = np.where(lengths >= 2, lengths, layout.shape[1] + 1)
-    lh, jk = np.unravel_index(int(lengths.argmin()), lengths.shape)
-    iq = int(np.nonzero(layout[lh, :, jk])[0][-1])
-    layout[lh, iq, jk] = False
-    dropped = bs.BlockSparseTables(layout, tables.block, q.device)
-    f_k, f_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                 dropped, scale)
+    pv, dsk, dsq, pdo = sparse_terms(torch, bs, q, k, v, do, lse, delta,
+                                     tables, scale)
 
     def lim(ref, t):
         return BF16_ATOL + BF16_RTOL * ref.float().abs() + FLASH_BF16_TERMS * t
 
-    x_k = planted_fault(torch, f"dK {tag} with q-block {iq} left out of "
-                        f"k-block {jk}'s list", f_k, ref_k, lim(ref_k, dsq))
-    x_v = planted_fault(torch, f"dV {tag} with q-block {iq} left out of "
-                        f"k-block {jk}'s list", f_v, ref_v, lim(ref_v, pdo))
-    worst = min(x_k, x_v)
-    check(worst >= 10.0, f"K19's limits read a dropped list entry at only "
-                         f"{worst:.2f}x, not >= 10x")
-    return worst
+    rows, what = _dropped_entry(bs, tables, transposed=False)
+    fault = bs.block_sparse_fwd_reference(q, k, v, rows, scale)[0]
+    x_o = planted_fault(torch, f"O {tag} with {what}", fault, o, lim(o, pv))
+    del fault, pv
+    ref = bs.block_sparse_bwd_dq_reference(q, k, v, do, lse, delta, tables,
+                                           scale)
+    fault = bs.block_sparse_bwd_dq_reference(q, k, v, do, lse, delta, rows,
+                                             scale)
+    x_dq = planted_fault(torch, f"dQ {tag} with {what}", fault, ref,
+                         lim(ref, dsk))
+    del o, ref, fault, dsk
+    cols, what = _dropped_entry(bs, tables, transposed=True)
+    ref_k, ref_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                     tables, scale)
+    f_k, f_v = bs.block_sparse_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 cols, scale)
+    x_k = planted_fault(torch, f"dK {tag} with {what}", f_k, ref_k,
+                        lim(ref_k, dsq))
+    x_v = planted_fault(torch, f"dV {tag} with {what}", f_v, ref_v,
+                        lim(ref_v, pdo))
+    out = {"block_sparse_fwd": x_o, "block_sparse_bwd_dq": x_dq,
+           "block_sparse_bwd_dkv": min(x_k, x_v)}
+    for name, x in out.items():
+        check(x >= 10.0, f"{name}'s limits read a dropped list entry at "
+                         f"only {x:.2f}x, not >= 10x")
+    return out
 
 
 def sparse_inputs(torch, gen, B, H, S, hd, dtype, n=4):
@@ -2527,6 +2611,126 @@ def phase_sparse_kernel_checks(torch):
                      1e-5 if f32 else BF16_ATOL)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+# head dims in (128, 256]: zero-padded to 256 by the wrappers, run by the
+# exact tile kernels (K1-K3, K16-K19) in both types
+WIDE_HDS = (160, 256)
+# timing shapes at hd 256 (bf16): K1-K3 causal, K16-K19 on the Fixed layout
+WIDE_FLASH = dict(B=1, S=4096, H=16, hd=256)
+WIDE_SPARSE = dict(B=1, H=16, S=8192, hd=256, block=64)
+
+
+def phase_wide_head_checks(torch):
+    """K1-K3 and K16-K19 at hd 160 and 256 (the exact tile kernels; 160
+    zero-padded to 256) against their plain versions in bf16 and float32:
+    flash attention at S 100 and 257, causal and full, G 2; block-sparse
+    attention at blocks 16, 64 and 128, each layout class in turn, per-head
+    layouts, an emptied q-block row (O = 0, LSE = -1e30 exactly) and S off
+    the block grid. Then each kernel timed at hd 256 in bf16 beside its
+    bound (timing only; speed at hd 256 is later work). → the timings."""
+    import itertools
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    kinds = ((torch.bfloat16, "bf16", FLASH_BF16_TERMS, BF16_RTOL, BF16_ATOL),
+             (torch.float32, "f32", F32_TERMS, F32_RTOL, 1e-5))
+    for hd, (dtype, tag, terms, rtol, atol), S, causal in itertools.product(
+            WIDE_HDS, kinds, (100, 257), (True, False)):
+        q, k, v, do = flash_inputs(torch, gen, 2, S, 4, 2, hd, dtype)
+        check_flash(torch, fa, f"{tag} wide S={S} causal={causal} hd={hd} "
+                    f"G=2", q, k, v, do, causal, terms, rtol, atol)
+    for i, (hd, dtype, blk) in enumerate(itertools.product(
+            WIDE_HDS, (torch.float32, torch.bfloat16), (16, 64, 128))):
+        name, kw = SPARSE_EDGE_LAYOUTS[i % len(SPARSE_EDGE_LAYOUTS)]
+        per_head, empty = i % 3 == 0, i % 3 == 1
+        H = 4
+        S = 8 * blk - (5 if i % 2 else 0)
+        layout = getattr(sc, name)(num_heads=H, block=blk,
+                                   different_layout_per_head=per_head,
+                                   **kw).make_layout(8 * blk)
+        if empty:
+            layout[:, 3] = False
+        tables = bs.prepare_layout(layout, blk, H, DEVICE)
+        q, k, v, do = sparse_inputs(torch, gen, 2, H, S, hd, dtype)
+        f32 = dtype == torch.float32
+        stag = (f"{'f32' if f32 else 'bf16'} wide {name[:-14]} block={blk} "
+                f"hd={hd} S={S} per_head={per_head} empty_row={empty}")
+        check_sparse(torch, bs, stag, q, k, v, do, tables,
+                     SPARSE_F32_TERMS if f32 else FLASH_BF16_TERMS,
+                     F32_RTOL if f32 else BF16_RTOL,
+                     1e-5 if f32 else BF16_ATOL)
+        if empty:
+            o_k, lse_k = bs.block_sparse_fwd(q, k, v, tables)
+            rows = slice(3 * blk, 4 * blk)
+            check(bool((o_k[:, :, rows] == 0).all())
+                  and bool((lse_k[:, :, rows] == -1e30).all()),
+                  f"{stag}: the empty row is not O = 0, LSE = -1e30")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    out = {}
+    m = WIDE_FLASH
+    B, S, H, hd = m["B"], m["S"], m["H"], m["hd"]
+    q, k, v, do = flash_inputs(torch, gen, B, S, H, H, hd, torch.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    for name, fn, products, outputs, stats in (
+            ("flash_attention_fwd",
+             lambda: fa.flash_attention_fwd(q, k, v, True, scale), 2, 1, 0),
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                               scale), 3, 1, 2),
+            ("flash_attention_bwd_dkv",
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                True, scale), 4, 2, 2)):
+        ms = cuda_ms(torch, fn, 5)
+        nbytes, flops = flash_work(B, S, H, hd, True, products, outputs,
+                                   stats)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": dict(m, causal=True, dtype="bf16")}
+        log(f"time {name} hd {hd} (B {B} S {S} H {H}, causal, exact tile "
+            f"kernel): {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
+    del q, k, v, do, o, lse, delta
+    m = WIDE_SPARSE
+    B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
+    q, k, v, do = sparse_inputs(torch, gen, B, H, S, hd, torch.bfloat16)
+    cfg = sc.FixedSparsityConfig(num_heads=H, block=m["block"],
+                                 num_local_blocks=4, num_global_blocks=1,
+                                 attention="unidirectional")
+    tables = bs.prepare_layout(cfg.make_layout(S), m["block"], H, DEVICE)
+    o, lse = bs.block_sparse_fwd(q, k, v, tables, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    for name, fn in (
+            ("block_sparse_fwd",
+             lambda: bs.block_sparse_fwd(q, k, v, tables, scale)),
+            ("block_sparse_fwd_nolse",
+             lambda: bs.block_sparse_fwd_nolse(q, k, v, tables, scale)),
+            ("block_sparse_bwd_dq",
+             lambda: bs.block_sparse_bwd_dq(q, k, v, do, lse, delta, tables,
+                                            scale)),
+            ("block_sparse_bwd_dkv",
+             lambda: bs.block_sparse_bwd_dkv(q, k, v, do, lse, delta, tables,
+                                             scale))):
+        ms = cuda_ms(torch, fn, 5)
+        nbytes, flops = sparse_work(name, B, H, S, hd,
+                                    tables.active_blocks(H), m["block"])
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": dict(m, layout="fixed", dtype="bf16",
+                                   density=tables.density())}
+        log(f"time {name} hd {hd} (B {B} H {H} S {S}, block {m['block']}, "
+            f"fixed, exact tile kernel): {ms:.4f} ms (bound {b_ms:.4f} ms "
+            f"by {b_by})")
+    del q, k, v, do, o, lse, delta
+    _free(torch)
+    return out
 
 
 def _sparse_counters():
@@ -2674,7 +2878,7 @@ def phase_sparse_main_path(torch):
         for n, x in e.items():
             errs[n] = max(errs.get(n, 0.0), x)
         if name == "fixed":
-            results["dkv_planted_fault_over_limit"] = check_bs_dkv_faults(
+            results["planted_faults_over_limit"] = check_bs_faults(
                 torch, bs, "bf16 main shapes fixed", q, k, v, w, tables)
             torch.cuda.empty_cache()
         results["training"][name] = {"step_s": sorted(times),
@@ -2685,13 +2889,12 @@ def phase_sparse_main_path(torch):
     return launches, results, errs
 
 
-def sparse_work(name, B, H, S, hd, active):
+def sparse_work(name, B, H, S, hd, active, blk=SPARSE_MAIN["block"]):
     """(bytes, flops) of one kernel: its [B, H, S, hd] bf16 inputs read once
     and outputs written once, float32 [B, H, S] statistics; 2*hd flops per
     product and (query, key) pair of the ``active`` blocks (over all heads,
-    of block**2 pairs each)."""
+    of blk**2 pairs each)."""
     n, stats = B * H * S * hd * 2, B * H * S * 4
-    blk = SPARSE_MAIN["block"]
     pairs = active * blk * blk
     return {"block_sparse_fwd": (4 * n + stats, 4 * hd * pairs),
             "block_sparse_fwd_nolse": (4 * n, 4 * hd * pairs),
@@ -2781,17 +2984,17 @@ def phase_sparse_timing(torch, launches, errs, results):
                 f"plain {plain_ms:.3f} ms; library "
                 f"{'-' if lib is None else f'{lib:.4f} ms'})")
             torch.cuda.empty_cache()
-        # K19's parent design on the same inputs (its C entry point is the
-        # tree's: swapped in under the wrapper), timing only
-        parent = kernel_probe.swapped(
-            "block_sparse_attention_bwd",
-            _PARENT_LIBS["block_sparse_attention_bwd"],
-            lambda: bs.block_sparse_bwd_dkv(q, k, v, do, lse, delta, tables,
-                                            scale))
-        dkv = rows["block_sparse_bwd_dkv"]
-        dkv["parent_ms"] = cuda_ms(torch, parent, 10)
-        log(f"time block_sparse_bwd_dkv ({lname}) parent design: "
-            f"{dkv['parent_ms']:.4f} ms (this tree's {dkv['ms']:.4f} ms)")
+        # the parent designs on the same inputs (their C entry points are
+        # the tree's: each library swapped in under the wrapper), timing
+        # only: K16/K17 before their redesign, and the bwd copy's K18 (as
+        # it was before its redesign) and K19 (before its own)
+        for name, (kern, _) in specs.items():
+            src = SPARSE_SOURCES[name].rsplit("/", 1)[1][:-3]
+            parent = kernel_probe.swapped(src, _PARENT_LIBS[src], kern)
+            rows[name]["parent_ms"] = cuda_ms(torch, parent, 10)
+            log(f"time {name} ({lname}) parent design: "
+                f"{rows[name]['parent_ms']:.4f} ms (this tree's "
+                f"{rows[name]['ms']:.4f} ms)")
         by_layout[lname] = {"density": tables.density(),
                             "active_blocks": active, "kernels": rows}
         del o, lse, delta
@@ -4323,6 +4526,7 @@ def main():
         train_errs = phase_train_kernel_checks(torch)
         opt_errs = phase_optimizer_kernel_checks(torch)
         phase_sparse_kernel_checks(torch)
+        wide_heads = phase_wide_head_checks(torch)
         quant_checks = phase_quant_kernel_checks(torch, ops)
         launches, serving, model, prompts, bf16_out = phase_main_path(
             torch, ops)
@@ -4372,6 +4576,10 @@ def main():
                     "other_fused_optimizers": others,
                     "checkpoint": checkpoint}))
     log(json.dumps({"sparse_attention": sparse}))
+    log(json.dumps({"head_dim_256": {
+        "timing": wide_heads,
+        "ptxas": {n[len("hd256 "):]: r for n, r in ptxas.items()
+                  if n.startswith("hd256 ")}}}))
     log(json.dumps({"quantization": {"edge_checks": quant_checks,
                                      "weight_only": quant,
                                      "handoff": handoff}}))

@@ -12,7 +12,7 @@
 //     dQ = dS.K        dK = dS^T.Q        dV = P^T.dO
 // Layouts as the forward: q, k, v, o, dO and the gradients [B, S, H, hd];
 // lse and delta [B, H, S] float32. Element type float32 or bfloat16, hd in
-// {64, 128}. Two launches, as the reference: dQ, then dK/dV. Neither uses
+// {64, 128, 256}. Two launches, as the reference: dQ, then dK/dV. Neither uses
 // atomics and every float32 sum runs in a fixed tile order, so the outputs
 // are the same bits from call to call.
 //
@@ -63,10 +63,16 @@
 // dK/dV (its refill stalls warpgroup 0), folding delta into the dQ pass,
 // score products with an owned operand in registers.
 //
-// float32 (the card's edge checks) keeps the exact CUDA-core path, wgmma
-// having no full-float32 mode: a block of 4 warps owns 64 rows and walks
-// 64-row tiles it loads itself, with float32 FMAs in the accumulator
-// layout of tile_mma.cuh.
+// float32 (the card's edge checks) keeps the exact tile kernels, wgmma
+// having no full-float32 mode, and so does hd 256 in both types (a [128 x
+// 256] owned tile pair and its ring do not fit shared memory): a block of
+// TILE / 16 warps owns TILE rows and walks TILE-row tiles it loads itself
+// (TILE 64, 32 for float32 at hd 256), in the accumulator layout of
+// tile_mma.cuh: float32 FMAs for float32, mma.sync with float32 sums for
+// bf16, P and dS staged through shared memory in the input type (so
+// rounded to bf16 before the second products, as the wgmma path rounds
+// them). At hd 256 dK/dV holds 256 accumulator floats a thread and ptxas
+// spills (PERF.md); speed at hd 256 is later work.
 #include <type_traits>
 
 #include "flash_wgmma.cuh"
@@ -122,40 +128,44 @@ __device__ __forceinline__ void init_bars(uint64_t* bars, int fills) {
 
 namespace {
 
-// ---- float32: the exact CUDA-core kernels -------------------------------
-constexpr int kB = 64;       // rows per block and per walked tile
-constexpr int kThreads = 128;
-constexpr int kLD = kPad<float>;
+// ---- the exact tile kernels: float32, and hd 256 in both types ---------
+// A block owns TILE rows (TILE / 16 warps) and walks TILE-row tiles:
+// TILE = 64, and 32 for float32 at hd 256 (64 rows take 277 and 294 KB of
+// shared memory there).
+template <typename T, int HD>
+constexpr int kExactTile = sizeof(T) == 4 && HD == 256 ? 32 : 64;
 
-template <int HD>
+template <typename T, int HD, int TILE>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kB * (HD + kLD) + kB * (kB + kLD));
+  return sizeof(T) * (4 * TILE * (HD + kPad<T>) + TILE * (TILE + kPad<T>));
 }
 
-template <int HD>
+template <typename T, int HD, int TILE>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kB * (HD + kLD) + 2 * kB * (kB + kLD)) +
-         sizeof(float) * 2 * kB;
+  return sizeof(T) *
+             (4 * TILE * (HD + kPad<T>) + 2 * TILE * (TILE + kPad<T>)) +
+         sizeof(float) * 2 * TILE;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+template <typename T, int HD, int TILE>
+__global__ void __launch_bounds__(2 * TILE)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int S, int H, float scale, int causal) {
-  constexpr int LD = HD + kLD;
-  constexpr int LDP = kB + kLD;
+  constexpr int kB = TILE;
+  constexpr int kThreads = 2 * TILE;
+  constexpr int LD = HD + kPad<T>;
+  constexpr int LDP = kB + kPad<T>;
   constexpr int NT_S = kB / 8;
   constexpr int NT_O = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + kB * LD;
-  float* Ks = dOs + kB * LD;
-  float* Vs = Ks + kB * LD;
-  float* dSs = Vs + kB * LD;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + kB * LD;
+  T* Ks = dOs + kB * LD;
+  T* Vs = Ks + kB * LD;
+  T* dSs = Vs + kB * LD;
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -165,9 +175,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t stat = ((size_t)b * H + h) * S;
   const int q0 = iq * kB;
 
-  load_tile<float, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
+  load_tile<T, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
                                      row_stride, S - q0);
-  load_tile<float, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
+  load_tile<T, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
                                      row_stride, S - q0);
   const int row_lo = q0 + warp * 16 + g;
   float lse_r[2], delta_r[2];
@@ -182,13 +192,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   zero_acc(acc);
   const int nk = (S + kB - 1) / kB;
   const int n_tiles = causal ? min(nk, iq + 1) : nk;
-  float* dSw = dSs + warp * 16 * LDP;
+  T* dSw = dSs + warp * 16 * LDP;
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int j0 = jt * kB;
     __syncthreads();
-    load_tile<float, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
+    load_tile<T, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
                                        row_stride, S - j0);
-    load_tile<float, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
+    load_tile<T, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
                                        row_stride, S - j0);
     __syncthreads();
 
@@ -220,7 +230,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    float* out = dq + base + (size_t)row * row_stride;
+    T* out = dq + base + (size_t)row * row_stride;
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
       store_pair(out + 8 * nt + 2 * t, acc[0][nt][2 * r],
@@ -229,27 +239,28 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+template <typename T, int HD, int TILE>
+__global__ void __launch_bounds__(2 * TILE)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, int H, float scale,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int H, float scale,
                      int causal) {
-  constexpr int LD = HD + kLD;
-  constexpr int LDP = kB + kLD;
+  constexpr int kB = TILE;
+  constexpr int kThreads = 2 * TILE;
+  constexpr int LD = HD + kPad<T>;
+  constexpr int LDP = kB + kPad<T>;
   constexpr int NT_S = kB / 8;
   constexpr int NT_O = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + kB * LD;
-  float* Qs = Vs + kB * LD;
-  float* dOs = Qs + kB * LD;
-  float* PTs = dOs + kB * LD;
-  float* dSTs = PTs + kB * LDP;
-  float* lse_s = dSTs + kB * LDP;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kB * LD;
+  T* Qs = Vs + kB * LD;
+  T* dOs = Qs + kB * LD;
+  T* PTs = dOs + kB * LD;
+  T* dSTs = PTs + kB * LDP;
+  float* lse_s = reinterpret_cast<float*>(dSTs + kB * LDP);
   float* delta_s = lse_s + kB;
 
   const int jk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -260,9 +271,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t stat = ((size_t)b * H + h) * S;
   const int j0 = jk * kB;
 
-  load_tile<float, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
+  load_tile<T, kB, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
                                      row_stride, S - j0);
-  load_tile<float, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
+  load_tile<T, kB, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
                                      row_stride, S - j0);
 
   float acc_k[1][NT_O][4], acc_v[1][NT_O][4];
@@ -271,14 +282,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int key_lo = j0 + warp * 16 + g;          // keys key_lo, key_lo + 8
   const int nq = (S + kB - 1) / kB;
   const int first = causal ? jk : 0;              // kB query rows per tile
-  float* PTw = PTs + warp * 16 * LDP;
-  float* dSTw = dSTs + warp * 16 * LDP;
+  T* PTw = PTs + warp * 16 * LDP;
+  T* dSTw = dSTs + warp * 16 * LDP;
   for (int it = first; it < nq; ++it) {
     const int q0 = it * kB;
     __syncthreads();
-    load_tile<float, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
+    load_tile<T, kB, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
                                        row_stride, S - q0);
-    load_tile<float, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
+    load_tile<T, kB, HD, kThreads>(dOs, LD, dout + base + q0 * row_stride,
                                        row_stride, S - q0);
     if (threadIdx.x < kB) {
       const int row = q0 + threadIdx.x;
@@ -321,8 +332,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int key = key_lo + 8 * r;
     if (key >= S) continue;
-    float* ok_ = dk + base + (size_t)key * row_stride;
-    float* ov_ = dv + base + (size_t)key * row_stride;
+    T* ok_ = dk + base + (size_t)key * row_stride;
+    T* ov_ = dv + base + (size_t)key * row_stride;
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
       store_pair(ok_ + 8 * nt + 2 * t, acc_k[0][nt][2 * r],
@@ -333,44 +344,45 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
-cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
-                          const void* dout, const float* lse,
-                          const float* delta, void* dq, int B, int S, int H,
-                          float scale, int causal, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<HD>;
-  const size_t smem = dq_smem_bytes<HD>();
+template <typename T, int HD>
+cudaError_t launch_dq_exact(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int B, int S,
+                            int H, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr int TILE = kExactTile<T, HD>;
+  auto kern = flash_bwd_dq_kernel<T, HD, TILE>;
+  const size_t smem = dq_smem_bytes<T, HD, TILE>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kB - 1) / kB, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), S, H, scale, causal);
+  dim3 grid((S + TILE - 1) / TILE, H, B);
+  kern<<<grid, 2 * TILE, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), S, H, scale, causal);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse,
-                           const float* delta, void* dk, void* dv, int B,
-                           int S, int H, float scale, int causal,
-                           cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<HD>;
-  const size_t smem = dkv_smem_bytes<HD>();
+template <typename T, int HD>
+cudaError_t launch_dkv_exact(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int B,
+                             int S, int H, float scale, int causal,
+                             cudaStream_t stream) {
+  constexpr int TILE = kExactTile<T, HD>;
+  auto kern = flash_bwd_dkv_kernel<T, HD, TILE>;
+  const size_t smem = dkv_smem_bytes<T, HD, TILE>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kB - 1) / kB, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, scale,
-      causal);
+  dim3 grid((S + TILE - 1) / TILE, H, B);
+  kern<<<grid, 2 * TILE, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal);
   return cudaGetLastError();
 }
-
 
 // dQ: a CTA owns 128 query rows and walks 64-key tiles.
 template <int HD>
@@ -763,13 +775,19 @@ extern "C" int flash_attention_bwd_dq_launch(
     if (hd == 64)
       return launch_dq_bf16<64>(q, k, v, dout, l, d, dq, B, S, H, scale,
                                 causal, st);
+    if (hd == 256)
+      return launch_dq_exact<__nv_bfloat16, 256>(q, k, v, dout, l, d, dq, B,
+                                                 S, H, scale, causal, st);
   } else if (dtype == kF32) {
     if (hd == 128)
-      return launch_dq_f32<128>(q, k, v, dout, l, d, dq, B, S, H, scale,
-                                causal, st);
+      return launch_dq_exact<float, 128>(q, k, v, dout, l, d, dq, B, S, H,
+                                         scale, causal, st);
     if (hd == 64)
-      return launch_dq_f32<64>(q, k, v, dout, l, d, dq, B, S, H, scale,
-                               causal, st);
+      return launch_dq_exact<float, 64>(q, k, v, dout, l, d, dq, B, S, H,
+                                        scale, causal, st);
+    if (hd == 256)
+      return launch_dq_exact<float, 256>(q, k, v, dout, l, d, dq, B, S, H,
+                                         scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -791,13 +809,19 @@ extern "C" int flash_attention_bwd_dkv_launch(
     if (hd == 64)
       return launch_dkv_bf16<64>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
                                  causal, st);
+    if (hd == 256)
+      return launch_dkv_exact<__nv_bfloat16, 256>(q, k, v, dout, l, d, dk, dv,
+                                                  B, S, H, scale, causal, st);
   } else if (dtype == kF32) {
     if (hd == 128)
-      return launch_dkv_f32<128>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
-                                 causal, st);
+      return launch_dkv_exact<float, 128>(q, k, v, dout, l, d, dk, dv, B, S,
+                                          H, scale, causal, st);
     if (hd == 64)
-      return launch_dkv_f32<64>(q, k, v, dout, l, d, dk, dv, B, S, H, scale,
-                                causal, st);
+      return launch_dkv_exact<float, 64>(q, k, v, dout, l, d, dk, dv, B, S, H,
+                                         scale, causal, st);
+    if (hd == 256)
+      return launch_dkv_exact<float, 256>(q, k, v, dout, l, d, dk, dv, B, S,
+                                          H, scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,7 @@
 //
 // Layouts: q, k, v, o are [B, S, H, hd] (the model's layout; GQA heads are
 // repeated before the call, as the reference does); lse is [B, H, S]
-// float32. Element type float32 or bfloat16, hd in {64, 128}.
+// float32. Element type float32 or bfloat16, hd in {64, 128, 256}.
 //
 // Bound on this card: operations, 4*hd flops per visible (query, key) pair
 // and head, against 989 TFLOP/s dense bfloat16.
@@ -55,11 +55,16 @@
 // <= 2^-9 per term; the softmax statistics, the sums and the LSE stay
 // float32; O is rounded once.
 //
-// float32 (the card's edge checks) keeps the exact CUDA-core path, wgmma
-// having no full-float32 mode: a block of 4 warps owns 64 query rows and
-// walks 64-key tiles it loads itself, each warp 16 rows and a lane 2 of
-// them in the accumulator layout of tile_mma.cuh, with float32 FMAs, P
-// staged through shared memory and expf.
+// float32 (the card's edge checks) keeps the exact tile kernel, wgmma
+// having no full-float32 mode, and so does hd 256 in both types (a [128 x
+// 256] owned tile and a ring of 128-key stages do not fit shared memory):
+// a block of 4 warps owns 64 query rows and walks 64-key tiles it loads
+// itself, each warp 16 rows and a lane 2 of them in the accumulator layout
+// of tile_mma.cuh, with float32 FMAs for float32 and mma.sync for bf16
+// (float32 sums), P staged through shared memory in the input type (so
+// rounded to bf16 for P.V, as the wgmma path does) and expf. At hd 256 a
+// thread holds 128 accumulator floats and ptxas spills some of them
+// (PERF.md); speed at hd 256 is later work.
 #include <type_traits>
 
 #include "flash_wgmma.cuh"
@@ -334,42 +339,40 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// ---- float32: the exact CUDA-core kernel --------------------------------
-constexpr int kBQ = 64;      // query rows per block (4 warps x 16)
-constexpr int kBK = 64;      // keys per tile
-constexpr int kThreads = 128;
-constexpr int kLD = kPad<float>;
-
-template <int HD>
+// ---- the exact tile kernel: float32, and hd 256 in both types ----------
+// TILE query rows a block (TILE / 16 warps), TILE-key tiles; TILE = 64
+// everywhere (float32 at hd 256 takes 212 KB of shared memory)
+template <typename T, int HD, int TILE>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (3 * kBQ * (HD + kLD) + kBQ * (kBK + kLD));
+  return sizeof(T) * (3 * TILE * (HD + kPad<T>) + TILE * (TILE + kPad<T>));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+template <typename T, int HD, int TILE>
+__global__ void __launch_bounds__(2 * TILE)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int S, int H, float scale,
                  int causal) {
-  constexpr int LD = HD + kLD;
-  constexpr int LDP = kBK + kLD;
-  constexpr int NT_S = kBK / 8;   // n-tiles of a score tile
+  constexpr int NTHREADS = 2 * TILE;
+  constexpr int LD = HD + kPad<T>;
+  constexpr int LDP = TILE + kPad<T>;
+  constexpr int NT_S = TILE / 8;  // n-tiles of a score tile
   constexpr int NT_O = HD / 8;    // n-tiles of an output tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + TILE * LD;
+  T* Vs = Ks + TILE * LD;
+  T* Ps = Vs + TILE * LD;
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t row_stride = (size_t)H * HD;
   const size_t base = (size_t)b * S * row_stride + (size_t)h * HD;
-  const int q0 = iq * kBQ;
+  const int q0 = iq * TILE;
 
-  load_tile<float, kBQ, HD, kThreads>(Qs, LD, q + base + q0 * row_stride,
-                                      row_stride, S - q0);
+  load_tile<T, TILE, HD, NTHREADS>(Qs, LD, q + base + q0 * row_stride,
+                                   row_stride, S - q0);
 
   float acc[1][NT_O][4];
   zero_acc(acc);
@@ -377,15 +380,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float l_i[2] = {0.f, 0.f};
   const int row_lo = q0 + warp * 16 + g;          // rows row_lo, row_lo + 8
 
-  const int nk = (S + kBK - 1) / kBK;
-  const int n_tiles = causal ? min(nk, iq + 1) : nk;   // kBQ == kBK
+  const int nk = (S + TILE - 1) / TILE;
+  const int n_tiles = causal ? min(nk, iq + 1) : nk;   // square tiles
   for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * kBK;
+    const int j0 = jt * TILE;
     __syncthreads();                               // previous tile consumed
-    load_tile<float, kBK, HD, kThreads>(Ks, LD, k + base + j0 * row_stride,
-                                        row_stride, S - j0);
-    load_tile<float, kBK, HD, kThreads>(Vs, LD, v + base + j0 * row_stride,
-                                        row_stride, S - j0);
+    load_tile<T, TILE, HD, NTHREADS>(Ks, LD, k + base + j0 * row_stride,
+                                     row_stride, S - j0);
+    load_tile<T, TILE, HD, NTHREADS>(Vs, LD, v + base + j0 * row_stride,
+                                     row_stride, S - j0);
     __syncthreads();
 
     float s[1][NT_S][4];
@@ -414,7 +417,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       alpha[r] = expf(m_i[r] - m_new);
       m_i[r] = m_new;
     }
-    float* Pw = Ps + warp * 16 * LDP;
+    // P in the input type: rounded to bfloat16 for P.V with bf16 inputs
+    T* Pw = Ps + warp * 16 * LDP;
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
       float p[4];
@@ -438,7 +442,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[0][nt][e] *= alpha[e >> 1];
     }
     __syncwarp();
-    warp_mma<1, NT_O, true, false>(acc, Pw, LDP, Vs, LD, kBK);
+    warp_mma<1, NT_O, true, false>(acc, Pw, LDP, Vs, LD, TILE);
     __syncwarp();
   }
 
@@ -448,7 +452,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= S) continue;
     const float l_safe = l_i[r] == 0.f ? 1.f : l_i[r];
     const float inv = 1.f / l_safe;
-    float* orow = o + base + (size_t)row * row_stride;
+    T* orow = o + base + (size_t)row * row_stride;
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
       store_pair(orow + 8 * nt + 2 * t, acc[0][nt][2 * r] * inv,
@@ -460,19 +464,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int S, int H, float scale,
-                       int causal, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<HD>;
-  const size_t smem = fwd_smem_bytes<HD>();
+template <typename T, int HD>
+cudaError_t launch_exact(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int S, int H,
+                         float scale, int causal, cudaStream_t stream) {
+  constexpr int TILE = 64;
+  auto kern = flash_fwd_kernel<T, HD, TILE>;
+  const size_t smem = fwd_smem_bytes<T, HD, TILE>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, scale,
+  dim3 grid((S + TILE - 1) / TILE, H, B);
+  kern<<<grid, 2 * TILE, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, scale,
       causal);
   return cudaGetLastError();
 }
@@ -495,11 +500,19 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
       return launch_bf16<128>(q, k, v, o, l, B, S, H, scale, causal, st);
     if (hd == 64)
       return launch_bf16<64>(q, k, v, o, l, B, S, H, scale, causal, st);
+    if (hd == 256)
+      return launch_exact<__nv_bfloat16, 256>(q, k, v, o, l, B, S, H, scale,
+                                              causal, st);
   } else if (dtype == kF32) {
     if (hd == 128)
-      return launch_f32<128>(q, k, v, o, l, B, S, H, scale, causal, st);
+      return launch_exact<float, 128>(q, k, v, o, l, B, S, H, scale, causal,
+                                      st);
     if (hd == 64)
-      return launch_f32<64>(q, k, v, o, l, B, S, H, scale, causal, st);
+      return launch_exact<float, 64>(q, k, v, o, l, B, S, H, scale, causal,
+                                     st);
+    if (hd == 256)
+      return launch_exact<float, 256>(q, k, v, o, l, B, S, H, scale, causal,
+                                      st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,8 +3,8 @@
 // one (batch, head), two consumer warpgroups of 64, and walks the other
 // side in tiles loaded by TMA from the [B, S, H*hd] layout as it is
 // (64-column boxes, 128-byte swizzle; rows past S arrive as zeros). The
-// block-sparse dK/dV kernel (block_sparse_attention_bwd.cu) uses the
-// raster and the products too.
+// block-sparse kernels (block_sparse_attention_fwd.cu, _bwd.cu) use the
+// raster, the products and the stores too.
 #pragma once
 
 #include "hopper_async.cuh"
@@ -122,6 +122,26 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
     __nv_bfloat16* o = out + (((size_t)b * S + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
+      store_pair(o + 8 * j + 2 * t, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Columns [8*J0, 8*J1) of rows row_lo and row_lo + 8 of a warp's [16 x HD]
+// accumulator slice in a [B*H, S, HD] output (the block-sparse layout),
+// rounded once to bfloat16; rows at or past S are not written.
+template <int HD, int J0 = 0, int J1 = HD / 8>
+__device__ __forceinline__ void store_bhsd(__nv_bfloat16* out,
+                                           const float (&acc)[HD / 2],
+                                           int row_lo, int S, int bh) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* o = out + ((size_t)bh * S + row) * HD;
+#pragma unroll
+    for (int j = J0; j < J1; ++j) {
       store_pair(o + 8 * j + 2 * t, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }

@@ -37,10 +37,10 @@ mask inside a block (``attention="unidirectional"`` is a block-level
 lower triangle). Inputs are read at their length S: the kernels mask the
 partial last block instead of padding copies of q, k and v.
 
-The kernels are built for head dims 64 and 128: a narrower hd is
-zero-padded to the next of the two (:func:`run_padded`, shared with flash
-attention), with the scale from the true hd and O, dQ, dK and dV sliced
-back; hd above 128 raises.
+The kernels are built for head dims 64, 128 and 256 (256 on the exact
+tile kernels): any other hd up to 256 is zero-padded to the next of the
+three (:func:`run_padded`, shared with flash attention), with the scale
+from the true hd and O, dQ, dK and dV sliced back; hd above 256 raises.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (``*_reference``):
@@ -60,11 +60,10 @@ import torch
 
 from ...accelerator import get_accelerator
 from ..op_builder.builder import DTYPE_CODES, check_launch, kernel_function
-from ..transformer.flash_attention import run_padded
+from ..transformer.flash_attention import KERNEL_HEAD_DIMS, run_padded
 
 _NEG_INF = -1e30
 _KERNEL_BLOCKS = (16, 32, 64, 128)
-_KERNEL_HEAD_DIMS = (64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 7 + [_I] * 7 + [_F, _I, _P]
@@ -207,7 +206,8 @@ def _check_layout(name, q, tables):
 def _check_kernel_inputs(name, tensors, tables, stats=()):
     """What the CUDA kernels take: contiguous, 16-byte aligned float32 or
     bfloat16 ``[B, H, S, hd]`` tensors of one dtype on one CUDA device with
-    hd in {64, 128}, a block in {16, 32, 64, 128} and the layout's lists on
+    hd in ``KERNEL_HEAD_DIMS``, a block in {16, 32, 64, 128} and the
+    layout's lists on
     that device; contiguous float32 ``[B, H, S]`` row statistics."""
     first = tensors[0]
     dev = first.device
@@ -216,9 +216,9 @@ def _check_kernel_inputs(name, tensors, tables, stats=()):
     if first.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: float32 or bfloat16 inputs, not "
                          f"{first.dtype}")
-    if first.dim() != 4 or first.shape[-1] not in _KERNEL_HEAD_DIMS:
+    if first.dim() != 4 or first.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the kernel takes [B, H, S, hd] with hd in "
-                         f"{_KERNEL_HEAD_DIMS}, got {tuple(first.shape)}")
+                         f"{KERNEL_HEAD_DIMS}, got {tuple(first.shape)}")
     if tables.block not in _KERNEL_BLOCKS:
         raise ValueError(f"{name}: the kernel supports block in "
                          f"{_KERNEL_BLOCKS}, got {tables.block}")

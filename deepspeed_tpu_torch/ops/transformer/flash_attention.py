@@ -30,10 +30,11 @@ launches in ``<wrapper>.launches``. The CUDA kernels choose their own
 tiles (bf16, TMA + wgmma: a block owns 128 rows, two warpgroups of 64;
 the forward walks 128-key tiles, the backward 64-row tiles; float32:
 64 x 64 on the CUDA cores); the model's ``flash_block_q``/``flash_block_k``
-do not steer them. They are built for head dims 64 and 128: a narrower hd
-is zero-padded to the next of the two (:func:`run_padded`; q, k, v and dO
+do not steer them. They are built for head dims 64, 128 and 256 (256 on
+the exact tile kernels, in both types): any other hd up to 256 is
+zero-padded to the next of the three (:func:`run_padded`; q, k, v and dO
 are per-call activations, so the copies are cheap), with the scale from
-the true hd and O, dQ, dK and dV sliced back; hd above 128 raises.
+the true hd and O, dQ, dK and dV sliced back; hd above 256 raises.
 """
 from __future__ import annotations
 
@@ -48,7 +49,10 @@ from ...accelerator import get_accelerator
 from ..op_builder.builder import DTYPE_CODES, check_launch, kernel_function
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = (64, 128)
+#: the head dims the attention kernels are built for (K1-K3 here, K16-K19
+#: in ``sparse_attention/block_sparse_kernel.py``); :func:`kernel_head_dim`
+#: pads any other hd up to the next of them
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]
@@ -58,7 +62,8 @@ _DKV_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]
 
 def _check_kernel_inputs(name, tensors, stats=()):
     """What the CUDA kernels take: one CUDA device, contiguous float32 or
-    bfloat16 ``[B, S, H, hd]`` tensors of one dtype with hd in {64, 128},
+    bfloat16 ``[B, S, H, hd]`` tensors of one dtype with hd in
+    :data:`KERNEL_HEAD_DIMS`,
     16-byte aligned, with rows (``H·hd`` elements) a multiple of 16 bytes
     (TMA's stride rule for the bf16 backward's tensor maps); contiguous
     float32 row statistics."""
@@ -69,9 +74,9 @@ def _check_kernel_inputs(name, tensors, stats=()):
     if first.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: float32 or bfloat16 inputs, not "
                          f"{first.dtype}")
-    if first.shape[-1] not in _KERNEL_HEAD_DIMS:
+    if first.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the kernel supports head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {first.shape[-1]}")
+                         f"{KERNEL_HEAD_DIMS}, got {first.shape[-1]}")
     for t in tensors:
         if t.device != dev or t.dtype != first.dtype:
             raise ValueError(f"{name}: inputs must share device and dtype")
@@ -93,17 +98,20 @@ def _check_kernel_inputs(name, tensors, stats=()):
 
 
 def kernel_head_dim(hd: int) -> int:
-    """The head dim the CUDA kernels run ``hd`` at: 64 or 128, the next
-    of the two at or above it; raises above 128 (a 256-wide tile design
-    does not fit K1's ring: ROADMAP Queue 3.1). The block-sparse kernels
-    (K16-K19) share the rule."""
-    for width in _KERNEL_HEAD_DIMS:
+    """The head dim the CUDA kernels run ``hd`` at: the first of
+    :data:`KERNEL_HEAD_DIMS` (64, 128, 256) at or above it. 64 and 128 run
+    the TMA + wgmma kernels in bf16; 256 runs the exact tile kernels in
+    both types (a [128 x 256] owned tile and its ring do not fit the
+    wgmma kernels' shared memory). Raises above 256, the widest head the
+    reference's model families use. The block-sparse kernels (K16-K19)
+    share the rule."""
+    for width in KERNEL_HEAD_DIMS:
         if hd <= width:
             return width
     raise ValueError(f"the attention kernels take head_dim <= "
-                     f"{_KERNEL_HEAD_DIMS[-1]}, got {hd}: head dims in "
-                     f"(128, 256] need a tile design of their own (ROADMAP "
-                     f"Queue 3.1)")
+                     f"{KERNEL_HEAD_DIMS[-1]}, got {hd}: no kernel is built "
+                     f"wider (a 16-row slice of a {hd}-wide float32 "
+                     f"accumulator is more than a thread's registers hold)")
 
 
 def run_padded(fn: Callable, tensors, n_sliced: int, *rest):

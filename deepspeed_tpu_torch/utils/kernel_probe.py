@@ -15,14 +15,16 @@ name and power limit and ptxas's report. It needs a card and ``nvcc``, and runs 
 32, hd 128, causal; K2 and K3 timed beside it), ``shard_major`` (K11 at x
 [4096, 14336] @ w [14336, 4096], 2 shards), ``ragged`` (K6's bf16 kernel
 at the serving engine's SplitFuse shapes), ``gathered`` (K12 at x [4096,
-14336] bf16 against 2 int4 shards of [7168, 4096]) and ``bs_dkv`` (K19 at
-B 1, H 32, S 8192, hd 128, block 64, Fixed and BigBird). The last two also
-time the design their redesign replaced, built from the copy of its
-source in ``probe_parents/`` (``PARENTS``), in the same turns.
+14336] bf16 against 2 int4 shards of [7168, 4096]), and ``bs_fwd`` (K16,
+K17), ``bs_dq`` (K18) and ``bs_dkv`` (K19) at B 1, H 32, S 8192, hd 128,
+block 64, Fixed and BigBird. The last four also time the design their
+redesign replaced, built from the copy of its source in
+``probe_parents/`` (``PARENTS``), in the same turns.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import math
 import os
 import subprocess
@@ -223,9 +225,14 @@ PARENTS = {
     "collective_matmul":
         "K12 before its redesign: 128 x 128 tiles on mma.sync-layout float "
         "products, scalar staging, float32 x, two accumulator sets",
+    "block_sparse_attention_fwd":
+        "K16/K17 before their redesign: 64 query rows a CTA of 4 warps, "
+        "mma.sync fragments from scalar shared loads, synchronous staging, "
+        "P through shared memory, expf",
     "block_sparse_attention_bwd":
-        "K19 before its redesign: 64 key rows a CTA of 4 warps, mma.sync "
-        "fragments from scalar shared loads, synchronous staging, expf",
+        "K19 before its redesign, and K18 before its own (the same exact "
+        "kernel): 64 rows a CTA of 4 warps, mma.sync fragments from scalar "
+        "shared loads, synchronous staging, expf",
 }
 PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "probe_parents")
@@ -308,7 +315,7 @@ def build_variants(source: str, variants=None) -> Dict[str, ctypes.CDLL]:
     with open(os.path.join(bld.CSRC_DIR, source + ".cu")) as f:
         text = f.read()
     paths = {}
-    for i, (name, subs) in enumerate((variants or VARIANTS[source]).items()):
+    for name, subs in (variants or VARIANTS[source]).items():
         body = text
         for old, new in subs:
             if isinstance(old, tuple):
@@ -321,7 +328,10 @@ def build_variants(source: str, variants=None) -> Dict[str, ctypes.CDLL]:
                 body = body.replace(old, new)
             else:
                 raise ValueError(f"{source} ({name}): {old!r} not found")
-        path = os.path.join(out_dir, f"{source}_{i}.cu")
+        # named by content: a library loaded once stays loaded under its
+        # path, so another body must not reuse the name
+        digest = hashlib.sha256(body.encode()).hexdigest()[:12]
+        path = os.path.join(out_dir, f"{source}_{digest}.cu")
         with open(path, "w") as f:
             f.write(body)
         paths[name] = path
@@ -548,6 +558,15 @@ GATHERED_VARIANTS: Dict[str, List[Edit]] = {
 BS_DKV_VARIANTS: Dict[str, List[Edit]] = {
     "two warpgroups side by side, raster groups of 16": [],
 }
+# K16/K17's variants (csrc/block_sparse_attention_fwd.cu) and K18's
+# (csrc/block_sparse_attention_bwd.cu): the tree's alone (PERF.md: reversed
+# order, rings of 3 and raster groups of 4 and 8 measured slower)
+BS_FWD_VARIANTS: Dict[str, List[Edit]] = {
+    "two warpgroups on alternate tiles, rings of 2, layout order": [],
+}
+BS_DQ_VARIANTS: Dict[str, List[Edit]] = {
+    "two warpgroups on alternate tiles, rings of 2, layout order": [],
+}
 
 
 def probe_gathered(cs):
@@ -600,19 +619,20 @@ def probe_gathered(cs):
           f"(no dequantize): {cs.cuda_ms(torch, yardstick, 10):.4f} ms")
 
 
-def probe_bs_dkv(cs):
-    """K19: each variant against the plain version on
-    ``chip_smoke.phase_sparse_kernel_checks``' batches and at the main
-    shape (B 1, H 32, S 8192, hd 128, bf16, block 64; Fixed and BigBird),
-    two calls bit for bit; then the variants and the parent design timed
-    in turns on both layouts, K16-K18 beside them."""
+def _probe_sparse(cs, source, variants, timed, seed):
+    """Block-sparse kernels of ``source``: each variant against the plain
+    versions on ``chip_smoke.phase_sparse_kernel_checks``' batches and at
+    the main shape (B 1, H 32, S 8192, hd 128, bf16, block 64; Fixed and
+    BigBird), two calls bit for bit; then the variants and the parent
+    design (built from its copy in ``probe_parents/``; its C entry points
+    are the tree's, so it is swapped in like a variant) timed in turns on
+    both layouts for the kernels named in ``timed``, the tree's other
+    block-sparse kernels beside them."""
     from ..ops.sparse_attention import block_sparse_kernel as bs
 
-    source = "block_sparse_attention_bwd"
-    libs = build_variants(source, BS_DKV_VARIANTS)
-    # the parent's C entry point is the tree's: swapped in like a variant
+    libs = build_variants(source, variants)
     libs["parent design"] = build_parents([source])[source]
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 94)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + seed)
     m = cs.SPARSE_MAIN
     B, H, S, hd = m["B"], m["H"], m["S"], m["hd"]
     q, k, v, do = cs.sparse_inputs(torch, gen, B, H, S, hd, torch.bfloat16)
@@ -635,25 +655,46 @@ def probe_bs_dkv(cs):
     for lname, tables in layouts.items():
         o, lse = bs.block_sparse_fwd(q, k, v, tables, scale)
         delta = (do.float() * o.float()).sum(-1)
-        fns = {name: swapped(source, lib, lambda: bs.block_sparse_bwd_dkv(
-            q, k, v, do, lse, delta, tables, scale))
-            for name, lib in libs.items()}
-        for name, ts in time_in_turns(cs, fns, 10).items():
-            print(f"time K19 {lname} [{name}]: "
-                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
-        for kname, fn in (
-                ("K16", lambda: bs.block_sparse_fwd(q, k, v, tables, scale)),
-                ("K17", lambda: bs.block_sparse_fwd_nolse(q, k, v, tables,
-                                                          scale)),
-                ("K18", lambda: bs.block_sparse_bwd_dq(
-                    q, k, v, do, lse, delta, tables, scale))):
-            print(f"time {kname} {lname} (the tree's): "
-                  f"{cs.cuda_ms(torch, fn, 10):.4f} ms")
+        calls = {
+            "K16": lambda: bs.block_sparse_fwd(q, k, v, tables, scale),
+            "K17": lambda: bs.block_sparse_fwd_nolse(q, k, v, tables, scale),
+            "K18": lambda: bs.block_sparse_bwd_dq(q, k, v, do, lse, delta,
+                                                  tables, scale),
+            "K19": lambda: bs.block_sparse_bwd_dkv(q, k, v, do, lse, delta,
+                                                   tables, scale)}
+        for kname, fn in calls.items():
+            if kname not in timed:
+                print(f"time {kname} {lname} (the tree's): "
+                      f"{cs.cuda_ms(torch, fn, 10):.4f} ms")
+                continue
+            fns = {name: swapped(source, lib, fn)
+                   for name, lib in libs.items()}
+            for name, ts in time_in_turns(cs, fns, 10).items():
+                print(f"time {kname} {lname} [{name}]: "
+                      + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+
+
+def probe_bs_dkv(cs):
+    """K19 (``_probe_sparse``)."""
+    _probe_sparse(cs, "block_sparse_attention_bwd", BS_DKV_VARIANTS,
+                  ("K19",), 94)
+
+
+def probe_bs_dq(cs):
+    """K18 (``_probe_sparse``)."""
+    _probe_sparse(cs, "block_sparse_attention_bwd", BS_DQ_VARIANTS,
+                  ("K18",), 95)
+
+
+def probe_bs_fwd(cs):
+    """K16 and K17 (``_probe_sparse``)."""
+    _probe_sparse(cs, "block_sparse_attention_fwd", BS_FWD_VARIANTS,
+                  ("K16", "K17"), 96)
 
 
 PROBES = {"flash_fwd": probe_flash_fwd, "shard_major": probe_shard_major,
           "ragged": probe_ragged, "gathered": probe_gathered,
-          "bs_dkv": probe_bs_dkv}
+          "bs_dkv": probe_bs_dkv, "bs_dq": probe_bs_dq, "bs_fwd": probe_bs_fwd}
 
 
 def main(argv: List[str]) -> int:

@@ -427,12 +427,60 @@ def test_padded_head_dim_matches_unpadded_and_pallas(hd, causal):
             *t, lse, delta, causal, scale).numpy(), **TOL)
 
 
-def test_head_dims_above_128_are_refused():
-    for hd in (64, 128):
-        assert port_fa.kernel_head_dim(hd) == hd
-    with pytest.raises(ValueError, match="Queue 3.1"):
-        port_fa.kernel_head_dim(160)
-    x = torch.zeros(1, 4, 1, 256)
-    with pytest.raises(ValueError, match="Queue 3.1"):
+# --------------------------------------------------------------------- #
+# head dims in (128, 256]: zero-padded to 256, the exact tile kernels
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [160, 256])
+def test_wide_head_dims_match_jax(hd, causal):
+    """Head dims above 128 run (no refusal): ``run_padded`` (q, k, v, dO
+    zero-padded to 256, the scale from the true hd, O/dQ/dK/dV sliced
+    back) around the plain K1-K3 against the JAX ``flash_attention`` and
+    its ``jax.vjp`` (the Pallas kernels in interpret mode) at that hd,
+    within 2e-5; and the autograd Function behind the port's
+    ``flash_attention`` against the same ``jax.vjp``."""
+    rng = np.random.default_rng(hd + 7 * causal)
+    S = 100
+    q, k, v, do = (rng.normal(size=(B, S, H, hd)).astype(np.float32)
+                   for _ in range(4))
+    scale = 1.0 / np.sqrt(hd)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    assert port_fa.kernel_head_dim(hd) == 256
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jax_fa.flash_attention(a, b, c, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    o, lse = port_fa.run_padded(port_fa.flash_attention_fwd_reference,
+                                t[:3], 1, causal, scale)
+    assert o.shape == (B, S, H, hd)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out_j), **TOL)
+    delta = (t[3] * o).sum(-1).transpose(1, 2).contiguous()
+    dq = port_fa.run_padded(port_fa.flash_attention_bwd_dq_reference, t, 1,
+                            lse, delta, causal, scale)
+    dk, dv = port_fa.run_padded(port_fa.flash_attention_bwd_dkv_reference,
+                                t, 2, lse, delta, causal, scale)
+    for got, ref in zip((dq, dk, dv), grads_j):
+        assert got.shape == (B, S, H, hd)
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    qkv = [x.clone().requires_grad_() for x in t[:3]]
+    out = port_fa.flash_attention(*qkv, causal=causal)
+    grads = torch.autograd.grad(out, qkv, t[3])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), **TOL)
+    for got, ref in zip(grads, grads_j):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("hd", [257, 320])
+def test_head_dims_above_256_are_refused(hd):
+    """No kernel is built wider than 256: ``kernel_head_dim`` and
+    ``run_padded`` (the CUDA path of K1-K3 and K16-K19) raise, saying so;
+    the widths up to 256 map to 64, 128 or 256."""
+    for width, want in ((1, 64), (64, 64), (65, 128), (128, 128),
+                        (129, 256), (200, 256), (256, 256)):
+        assert port_fa.kernel_head_dim(width) == want
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        port_fa.kernel_head_dim(hd)
+    x = torch.zeros(1, 4, 1, hd)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
         port_fa.run_padded(port_fa.flash_attention_fwd_reference,
                            (x, x, x), 1, True, 1.0)

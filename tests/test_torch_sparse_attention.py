@@ -97,16 +97,25 @@ def _t(*xs):
     return [torch.from_numpy(x) for x in xs]
 
 
-def _jax_fwd(q, k, v, layout, want_lse):
-    """The JAX forward pallas call (``_bs_fwd``), interpret mode."""
+def _jax_fwd(q, k, v, layout, want_lse, block=BLOCK):
+    """The JAX forward pallas call (``_bs_fwd``), interpret mode, on q, k,
+    v zero-padded to the layout's grid as ``block_sparse_attention`` pads
+    them; O and the LSE sliced back to S."""
+    S = q.shape[2]
     layout = np.ascontiguousarray(np.broadcast_to(
         layout, (q.shape[1],) + layout.shape[1:]))
+
+    def pad(x, n):
+        return jnp.pad(jnp.asarray(x),
+                       ((0, 0), (0, 0), (0, n * block - S), (0, 0)))
+
     out, lse = jax_bs._bs_fwd(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        jax_bs._StaticArr(layout),
-        jax_bs._StaticArr(jax_bs.build_fetch_table(layout)), BLOCK,
-        1.0 / np.sqrt(q.shape[-1]), q.shape[2], want_lse=want_lse)
-    return np.asarray(out), None if lse is None else np.asarray(lse)[..., 0]
+        pad(q, layout.shape[1]), pad(k, layout.shape[2]),
+        pad(v, layout.shape[2]), jax_bs._StaticArr(layout),
+        jax_bs._StaticArr(jax_bs.build_fetch_table(layout)), block,
+        1.0 / np.sqrt(q.shape[-1]), S, want_lse=want_lse)
+    return (np.asarray(out)[:, :, :S],
+            None if lse is None else np.asarray(lse)[:, :, :S, 0])
 
 
 # --------------------------------------------------------------------- #
@@ -397,6 +406,54 @@ def test_padded_head_dim_matches_unpadded_and_pallas(hd):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("hd", [160, 256])
+def test_wide_head_dim_matches_pallas(hd):
+    """Head dims above 128 run (no refusal): ``bs.run_padded`` (q, k, v, dO
+    zero-padded to 256, the scale from the true hd, O/dQ/dK/dV sliced
+    back) around the plain K16-K19 against the JAX ``_bs_fwd`` (O, LSE)
+    and ``jax.vjp`` of the JAX ``block_sparse_attention`` (the Pallas
+    kernels in interpret mode) at that hd (forward 2e-5, gradients 1e-4),
+    S off the block grid, a per-head layout with an emptied row; hd 257
+    raises."""
+    S = 88
+    _, pcfg = _configs(*LAYOUTS[1], different_layout_per_head=True)
+    layout = pcfg.make_layout(96)
+    layout[:, 2] = False
+    rng = np.random.default_rng(hd)
+    q, k, v, do = (rng.normal(size=(B, H, S, hd)).astype(np.float32)
+                   for _ in range(4))
+    t = _t(q, k, v, do)
+    tables = bs.prepare_layout(layout, BLOCK, H, "cpu")
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = bs.run_padded(bs.block_sparse_fwd_reference, t[:3], 1, tables,
+                           scale)
+    assert o.shape == (B, H, S, hd)
+    assert bool((o[:, :, 32:48] == 0).all())
+    assert bool((lse[:, :, 32:48] == -1e30).all())
+    o_j, lse_j = _jax_fwd(q, k, v, layout, want_lse=True)
+    np.testing.assert_allclose(o.numpy(), o_j, **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, **FWD_TOL)
+    o2 = bs.run_padded(lambda *a: bs.block_sparse_fwd_reference(*a)[0],
+                       t[:3], 1, tables, scale)
+    o2_j, _ = _jax_fwd(q, k, v, layout, want_lse=False)
+    np.testing.assert_allclose(o2.numpy(), o2_j, **FWD_TOL)
+    delta = (t[3] * o).sum(-1)
+    dq = bs.run_padded(bs.block_sparse_bwd_dq_reference, t, 1, lse, delta,
+                       tables, scale)
+    dk, dv = bs.run_padded(bs.block_sparse_bwd_dkv_reference, t, 2, lse,
+                           delta, tables, scale)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_bs.block_sparse_attention(a, b, c, layout, BLOCK),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(do))):
+        assert got.shape == (B, H, S, hd)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
+    wide = torch.zeros(B, H, S, 257)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        bs.run_padded(bs.block_sparse_fwd_reference, (wide,) * 3, 1, tables,
+                      scale)
+
+
 # --------------------------------------------------------------------- #
 # K19's bf16 walk at blocks 64 and 128 (csrc/block_sparse_attention_bwd.cu)
 # --------------------------------------------------------------------- #
@@ -540,3 +597,247 @@ def test_bf16_dkv_walk_emulation(case, rounding):
         worst = float(((g_ - w_).abs() / limit).max())
         assert worst <= 1.0, f"{nm}: {worst:.3f}x chip_smoke's limit"
 
+
+
+# --------------------------------------------------------------------- #
+# K16/K17's and K18's bf16 walks at blocks 64 and 128
+# (csrc/block_sparse_attention_fwd.cu, csrc/block_sparse_attention_bwd.cu)
+# --------------------------------------------------------------------- #
+ROWS = 64                    # query rows a CTA owns = keys of a walked tile
+LOG2E = np.float32(np.log2(np.e))
+MASKED2 = np.float32(-1e30) * LOG2E        # the kernels' masked score
+
+
+def _walk(tables, S, h):
+    """For each CTA of head ``h``: (its first query row q0, the first keys
+    of the 64-key tiles its q-block's list names: block / 64 an entry)."""
+    blk = tables.block
+    per = blk // ROWS
+    lh = 0 if tables.num_layout_heads == 1 else h
+    rp, cols = tables.row_ptr.numpy(), tables.cols.numpy()
+    for q0 in range(0, S, ROWS):
+        row = lh * tables.nq + q0 // blk
+        yield q0, [c * blk + ROWS * i for c in cols[rp[row]:rp[row + 1]]
+                   for i in range(per)]
+
+
+def _padded(x, S):
+    """[S, ...] → rows up to S + the widest walk past S, zeros (TMA's fill
+    of rows past S)."""
+    return torch.cat([x, x.new_zeros((4 * 128,) + tuple(x.shape[1:]))])
+
+
+def _emulate_fwd(q, k, v, tables, scale, rounding):
+    """O and the LSE as the bf16 forward walks them: a CTA owns 64 query
+    rows of one (batch, head); warpgroup g takes the tiles n of its
+    q-block's list with n % 2 == g and keeps its own online softmax in
+    base 2 (the running max m2 of s·scale·log2 e, the sum l, O), the mask
+    (keys at or past S at −1e30·log2 e) on the tail tile only (every other
+    tile asserted to need none); the two states are merged once at the
+    end: m = max(m0, m1), O = (O0·2^(m0−m) + O1·2^(m1−m)) / (l0·2^(m0−m) +
+    l1·2^(m1−m)), LSE = (m + log2 l)·ln 2, or −1e30 when l = 0 (an empty
+    list). With ``rounding`` P is rounded to bf16 before P·V, and O
+    once."""
+    B, H, S, hd = q.shape
+    rnd = (lambda x: x.bfloat16().float()) if rounding else (lambda x: x)
+    c = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    o = torch.zeros(B, H, S, hd)
+    lse = torch.zeros(B, H, S)
+    for b in range(B):
+        for h in range(H):
+            qb, kb, vb = (_padded(x[b, h].float(), S) for x in (q, k, v))
+            for q0, tiles in _walk(tables, S, h):
+                states = []
+                for g in (0, 1):
+                    m2 = torch.full((ROWS,), float(MASKED2))
+                    l = torch.zeros(ROWS)
+                    acc = torch.zeros(ROWS, hd)
+                    for k0 in tiles[g::2]:
+                        keys = torch.arange(k0, k0 + ROWS)
+                        edge = k0 + ROWS > S
+                        if not edge:
+                            assert bool((keys < S).all())
+                        s2 = (qb[q0:q0 + ROWS] @ kb[k0:k0 + ROWS].T) * c
+                        if edge:
+                            s2 = torch.where(keys[None] < S, s2,
+                                             torch.tensor(MASKED2))
+                        mx = torch.maximum(m2, s2.amax(1))
+                        alpha = torch.exp2(m2 - mx)
+                        m2 = mx
+                        p = torch.exp2(s2 - m2[:, None])
+                        l = alpha * l + p.sum(1)
+                        acc = acc * alpha[:, None] + rnd(p) @ vb[k0:k0 + ROWS]
+                    states.append((m2, l, acc))
+                (m0, l0, o0), (m1, l1, o1) = states
+                m = torch.maximum(m0, m1)
+                a0, a1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
+                lsum = l0 * a0 + l1 * a1
+                out = (o0 * a0[:, None] + o1 * a1[:, None]) / torch.where(
+                    lsum == 0, 1.0, lsum)[:, None]
+                n = min(ROWS, S - q0)
+                o[b, h, q0:q0 + n] = out[:n]
+                lse[b, h, q0:q0 + n] = torch.where(
+                    lsum == 0, torch.tensor(-1e30),
+                    (m + torch.log2(lsum)) * np.float32(np.log(2)))[:n]
+    return rnd(o), lse
+
+
+def _emulate_dq(q, k, v, do, lse, delta, tables, scale, rounding):
+    """dQ as the bf16 K18 kernel walks it: a CTA owns 64 query rows of one
+    (batch, head) with their lse and delta (0 past S; Q and dO rows past S
+    read as zeros); warpgroup g takes the tiles n of its q-block's list with
+    n % 2 == g and sums dS·K tile after tile in float32, keys at or past S
+    masked on the tail tile only (every other tile asserted to need none);
+    the two sums are folded at the end, dQ = dQ_0 + dQ_1. With
+    ``rounding`` dS is rounded to bf16 before dS·K, and dQ once."""
+    B, H, S, hd = q.shape
+    rnd = (lambda x: x.bfloat16().float()) if rounding else (lambda x: x)
+    dq = torch.zeros(B, H, S, hd)
+    for b in range(B):
+        for h in range(H):
+            qb, kb, vb, dob = (_padded(x[b, h].float(), S)
+                               for x in (q, k, v, do))
+            lb, db = _padded(lse[b, h], S), _padded(delta[b, h], S)
+            for q0, tiles in _walk(tables, S, h):
+                rows = slice(q0, q0 + ROWS)
+                sums = []
+                for g in (0, 1):
+                    acc = torch.zeros(ROWS, hd)
+                    for k0 in tiles[g::2]:
+                        keys = torch.arange(k0, k0 + ROWS)
+                        edge = k0 + ROWS > S
+                        if not edge:
+                            assert bool((keys < S).all())
+                        s = qb[rows] @ kb[k0:k0 + ROWS].T
+                        dp = dob[rows] @ vb[k0:k0 + ROWS].T
+                        p = torch.exp(s * scale - lb[rows, None])
+                        ds = p * (dp - db[rows, None]) * scale
+                        if edge:
+                            ds = torch.where(keys[None] < S, ds, 0.0)
+                        acc += rnd(ds) @ kb[k0:k0 + ROWS]
+                    sums.append(acc)
+                n = min(ROWS, S - q0)
+                dq[b, h, q0:q0 + n] = (sums[0] + sums[1])[:n]
+    return rnd(dq)
+
+
+_JAX_WALK = {}
+
+
+def _walk_case(case):
+    """The inputs of one of DKV_CASES' batches (bf16 values in float32),
+    its layout and tables, and the JAX kernels' O, LSE and dQ on them
+    (``_bs_fwd`` and ``jax.vjp`` in interpret mode, cached per case)."""
+    blk, hd, li, per_head, off, empty = case
+    name, kw = LAYOUTS[li]
+    nb = 6 if blk == 64 else 4
+    S = nb * blk - (5 if off else 0)
+    Hh = 2
+    cfg = getattr(port_sc, name)(num_heads=Hh, block=blk,
+                                 different_layout_per_head=per_head, **kw)
+    layout = cfg.make_layout(nb * blk)
+    if empty:
+        layout[:, 1] = False
+    rng = np.random.default_rng(4000 + 7 * li + blk + hd + S)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, Hh, S, hd)).astype(
+        np.float32)).bfloat16().float().numpy() for _ in range(4))
+    if case not in _JAX_WALK:
+        o_j, lse_j = _jax_fwd(q, k, v, layout, want_lse=True, block=blk)
+        _, vjp = jax.vjp(lambda a, b, c: jax_bs.block_sparse_attention(
+            a, b, c, layout, blk), *map(jnp.asarray, (q, k, v)))
+        _JAX_WALK[case] = (o_j.copy(), lse_j.copy(),
+                           np.array(vjp(jnp.asarray(do))[0]))
+    tables = bs.prepare_layout(layout, blk, Hh, "cpu")
+    return _t(q, k, v, do), tables, _JAX_WALK[case]
+
+
+def _chip_limit(ref, terms):
+    """``chip_smoke.py``'s limit for the card's bf16 kernels: two output
+    ulps (``BF16_RTOL``) and ``FLASH_BF16_TERMS`` of the terms' magnitudes
+    on top of ``BF16_ATOL``."""
+    import chip_smoke
+
+    return (chip_smoke.BF16_ATOL + chip_smoke.BF16_RTOL * ref.abs()
+            + chip_smoke.FLASH_BF16_TERMS * terms)
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("case", DKV_CASES,
+                         ids=[f"blk{c[0]}-hd{c[1]}-{LAYOUTS[c[2]][0][:-14]}"
+                              f"{'-per_head' if c[3] else ''}"
+                              f"{'-off_grid' if c[4] else ''}"
+                              f"{'-empty_row' if c[5] else ''}"
+                              for c in DKV_CASES])
+def test_bf16_fwd_walk_emulation(case, rounding):
+    """K16's bf16 walk on the CPU (``_emulate_fwd``: alternate tiles per
+    warpgroup, two online softmax states merged once in a fixed order)
+    against the JAX ``_bs_kernel`` in interpret mode: without rounding O
+    and the LSE within 2e-5 (abs and rel) of it and of the plain version;
+    with P rounded to bf16, O within the limit ``chip_smoke.py`` holds the
+    card's K16 to (``FLASH_BF16_TERMS`` of |P|@|V| on top of two output
+    ulps) and the LSE within 1e-4 + 1e-5·|ref|. An emptied row must give O
+    = 0 and LSE = -1e30 exactly. B 1, H 2; DKV_CASES' layouts, blocks,
+    head dims and edges."""
+    import chip_smoke
+
+    (q, k, v, do), tables, (o_j, lse_j, _) = _walk_case(case)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = _emulate_fwd(q, k, v, tables, scale, rounding)
+    o_j, lse_j = torch.from_numpy(o_j), torch.from_numpy(lse_j)
+    if case[5]:                                        # the emptied row
+        rows = slice(case[0], 2 * case[0])
+        assert bool((o[:, :, rows] == 0).all())
+        assert bool((lse[:, :, rows] == -1e30).all())
+    if not rounding:
+        o_p, lse_p = bs.block_sparse_fwd_reference(q, k, v, tables, scale)
+        for want_o, want_l in ((o_j, lse_j), (o_p, lse_p)):
+            np.testing.assert_allclose(o.numpy(), want_o.numpy(), atol=2e-5,
+                                       rtol=2e-5)
+            np.testing.assert_allclose(lse.numpy(), want_l.numpy(),
+                                       atol=2e-5, rtol=2e-5)
+        return
+    delta = (do * o_j).sum(-1)
+    pv, _, _, _ = chip_smoke.sparse_terms(torch, bs, q, k, v, do, lse_j,
+                                          delta, tables, scale)
+    worst = float(((o - o_j).abs() / _chip_limit(o_j, pv)).max())
+    assert worst <= 1.0, f"O: {worst:.3f}x chip_smoke's limit"
+    assert bool(((lse - lse_j).abs() <= 1e-4 + 1e-5 * lse_j.abs()).all())
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("case", DKV_CASES,
+                         ids=[f"blk{c[0]}-hd{c[1]}-{LAYOUTS[c[2]][0][:-14]}"
+                              f"{'-per_head' if c[3] else ''}"
+                              f"{'-off_grid' if c[4] else ''}"
+                              f"{'-empty_row' if c[5] else ''}"
+                              for c in DKV_CASES])
+def test_bf16_dq_walk_emulation(case, rounding):
+    """K18's bf16 walk on the CPU (``_emulate_dq``: alternate tiles per
+    warpgroup, the fixed-order fold dQ = dQ_0 + dQ_1) against dQ of
+    ``jax.vjp`` of the JAX ``block_sparse_attention`` (its
+    ``_bs_dq_kernel`` in interpret mode), from the JAX forward's LSE:
+    within 2e-5 (abs and rel) of it and of the plain version without
+    rounding; with dS rounded to bf16, within the limit ``chip_smoke.py``
+    holds the card's K18 to (``FLASH_BF16_TERMS`` of |dS|@|K| on top of
+    two output ulps). An emptied row must give dQ = 0. B 1, H 2."""
+    import chip_smoke
+
+    (q, k, v, do), tables, (o_j, lse_j, dq_j) = _walk_case(case)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    lse = torch.from_numpy(lse_j)
+    delta = (do * torch.from_numpy(o_j)).sum(-1)
+    dq = _emulate_dq(q, k, v, do, lse, delta, tables, scale, rounding)
+    dq_j = torch.from_numpy(dq_j)
+    if case[5]:
+        assert bool((dq[:, :, case[0]:2 * case[0]] == 0).all())
+    if not rounding:
+        dq_p = bs.block_sparse_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                tables, scale)
+        for want in (dq_j, dq_p):
+            np.testing.assert_allclose(dq.numpy(), want.numpy(), atol=2e-5,
+                                       rtol=2e-5)
+        return
+    _, dsk, _, _ = chip_smoke.sparse_terms(torch, bs, q, k, v, do, lse, delta,
+                                           tables, scale)
+    worst = float(((dq - dq_j).abs() / _chip_limit(dq_j, dsk)).max())
+    assert worst <= 1.0, f"dQ: {worst:.3f}x chip_smoke's limit"
