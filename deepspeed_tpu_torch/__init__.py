@@ -20,19 +20,47 @@ from .runtime.engine import DeepSpeedEngine
 from .runtime.topology import get_topology
 
 
-def initialize(model: Any = None, model_parameters: Optional[Dict] = None,
+def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
+               model_parameters: Optional[Dict] = None,
+               training_data: Any = None, lr_scheduler: Any = None,
+               collate_fn: Any = None,
                config: Union[str, Dict, DeepSpeedConfig, None] = None,
-               lr_scheduler: Any = None, device=None, topology=None):
-    """Create a training engine (the JAX ``deepspeed_tpu.initialize``).
+               config_params: Union[str, Dict, None] = None,
+               topology=None, device=None):
+    """Create a training engine (the JAX ``deepspeed_tpu.initialize``,
+    same argument order).
 
     ``model`` is a ``CausalLM`` (or anything with
     ``loss_fn(params, batch, rng)``, or such a callable);
     ``model_parameters`` a dict of dotted name → tensor, by default the
-    model's own parameters. ``device=None`` means CUDA, which must be
-    present. ``topology`` (``runtime.topology.MeshTopology``) defaults to
-    the process's, built over the world ``comm.init_distributed`` joined
-    (one process without it); the batch sizes are solved against its data
-    extent. → ``(engine, optimizer, None, lr_scheduler)``."""
+    model's own parameters. The config is ``config``, else
+    ``config_params``, else ``args.deepspeed_config`` (a dict, a JSON
+    path or a ``DeepSpeedConfig``); ``args.deepspeed_config`` together
+    with another config raises, as in the reference. ``device=None`` means
+    CUDA, which must be present. ``topology``
+    (``runtime.topology.MeshTopology``) defaults to the process's, built
+    over the world ``comm.init_distributed`` joined (one process without
+    it); the batch sizes are solved against its data extent.
+
+    Not offered: a client ``optimizer`` (ROADMAP Queue 3.2: the optimizer
+    comes from the config's ``optimizer`` block), and ``training_data`` /
+    ``collate_fn`` (ROADMAP M10). → ``(engine, optimizer, None,
+    lr_scheduler)``."""
+    if optimizer is not None:
+        raise NotImplementedError(
+            "a client optimizer is not ported yet (ROADMAP Queue 3.2): name "
+            "it in the config's \"optimizer\" block instead")
+    if training_data is not None or collate_fn is not None:
+        raise NotImplementedError(
+            "training_data / collate_fn (the engine's data loader) are not "
+            "ported yet (ROADMAP M10)")
+    config = config if config is not None else config_params
+    if args is not None and getattr(args, "deepspeed_config", None):
+        if config is not None:
+            raise ValueError(
+                "Not sure how to proceed: both args.deepspeed_config and the "
+                "config argument were given (reference semantics: pass one)")
+        config = args.deepspeed_config
     if topology is None:
         topology = get_topology()
     raw = config.raw if isinstance(config, DeepSpeedConfig) else config

@@ -11,6 +11,15 @@ When every live sequence is decoding, the batcher runs a fused decode
 window (:meth:`InferenceEngineV2.decode_batch_async`) whose sampling and
 metadata advance never leave the device.
 
+Prefix reuse and the KV memory tier (``prefix_cache``, ``track_page_heat``,
+``host_tier_mb``): committed prompt pages form a radix trie that admission
+grafts from (:meth:`InferenceEngineV2.graft_prefix`, then ``put`` of the
+remainder, :meth:`InferenceEngineV2.commit_prefix` at prefill end and at
+retirement); a host-side heat map ranks pages by age; under pool pressure
+cached prefix pages spill to host memory (``ragged/kv_swap.py``) and graft
+back. The ``decode_window`` and ``kv_alloc`` fault sites
+(``runtime/fault/injection.py``) poison a window or exhaust the pool.
+
 The engine runs eagerly under ``torch.inference_mode()``; the page pool is
 updated in place. Batches keep the JAX package's bucketed budgets, so both
 engines pad every batch the same way.
@@ -27,6 +36,7 @@ import torch
 
 from ...accelerator import get_accelerator
 from ...models.transformer import CausalLM, TransformerConfig
+from ...runtime.fault.injection import InjectedNaN, inject
 from ...utils.logging import logger
 from .model_runner import build_decode_loop, build_ragged_step, sample_tokens
 from .ragged.kv_cache import BlockedKVCache, KVCacheConfig
@@ -44,13 +54,14 @@ class SchedulingResult(Enum):
 
 @dataclasses.dataclass
 class RaggedInferenceEngineConfig:
-    """Reference: inference/v2/config_v2.py. The fields this slice uses,
-    with the JAX package's defaults."""
+    """Reference: inference/v2/config_v2.py. The fields the port serves
+    with, with the JAX package's defaults."""
 
     max_tokens: int = 256            # token budget per forward (SplitFuse chunk)
     max_seqs: int = 16
     max_ctx: int = 2048
     block_size: int = 64
+    num_blocks: Optional[int] = None  # default: enough for max_seqs * max_ctx
     dtype: torch.dtype = torch.bfloat16
     #: "paged" = the hand-written CUDA paged-attention kernels;
     #: "gather" = dense page-gather reference path (numerics oracle).
@@ -63,6 +74,21 @@ class RaggedInferenceEngineConfig:
     #: on-device sampling default for fused decode: 0 = full-vocab
     #: categorical (or argmax at temperature 0), k>0 = top-k sampling
     top_k: int = 0
+    #: radix prefix KV reuse: committed prompt pages become a token trie
+    #: (ragged/prefix_cache.py) that admission grafts from instead of
+    #: recomputing shared prefixes. Pages are refcounted; a grafted partial
+    #: page is copied before the sequence's first append (copy-on-write),
+    #: and cold cache pages are evicted under allocation pressure.
+    prefix_cache: bool = False
+    #: host-side KV page-heat tracking (ragged/page_heat.py): per-page
+    #: last-touch window and touch count from the block tables the engine
+    #: already walks — no device work, no device sync
+    track_page_heat: bool = True
+    #: host-memory page tier capacity in MB (0 = tier off). When on, a
+    #: sequence's coldest contiguous page prefix can be spilled in kv_ship
+    #: canonical rows to host memory and restored (ragged/kv_swap.py), and
+    #: prefix-cache evictions spill shared full pages host-side
+    host_tier_mb: float = 0.0
 
 
 class InferenceEngineV2:
@@ -87,14 +113,44 @@ class InferenceEngineV2:
         if c.attn_impl not in ("paged", "gather"):
             raise ValueError(
                 f"attn_impl must be 'paged' or 'gather', got {c.attn_impl!r}")
-        # enough pages for max_seqs sequences of max_ctx tokens
-        num_blocks = c.max_seqs * -(-c.max_ctx // c.block_size)
+        # default: enough pages for max_seqs sequences of max_ctx tokens
+        num_blocks = c.num_blocks or (c.max_seqs * -(-c.max_ctx
+                                                     // c.block_size))
         self.state_manager = DSStateManager(num_blocks=num_blocks,
                                             block_size=c.block_size)
+        if c.prefix_cache:
+            from .ragged.prefix_cache import RadixPrefixCache
+
+            self.state_manager.prefix_cache = RadixPrefixCache(
+                self.state_manager.allocator, c.block_size)
         self.kv = BlockedKVCache(KVCacheConfig(
             num_layers=self.cfg.num_layers, num_blocks=num_blocks,
             block_size=c.block_size, num_kv_heads=self.cfg.num_kv_heads,
             head_dim=self.cfg.head_dim, dtype=c.dtype), device=self.device)
+        #: page-heat tracker (None = tracking off): observes the allocator
+        #: so its live set follows the free list, ticked per forward
+        self.heat = None
+        #: uid → tenant label for fractional per-tenant KV attribution
+        self._uid_tenants: Dict[int, str] = {}
+        if c.track_page_heat:
+            from .ragged.page_heat import PageHeatTracker
+
+            self.heat = PageHeatTracker(
+                self.state_manager.allocator, block_size=c.block_size,
+                page_bytes=self.kv.mem_bytes() // num_blocks)
+            self.state_manager.allocator.heat = self.heat
+        #: host-memory page tier + swap coordinator (None = tier off)
+        self.host_tier = None
+        self.kv_swap = None
+        if c.host_tier_mb > 0:
+            from ...runtime.swap_tensor.host_tier import HostPageTier
+            from .ragged.kv_swap import KVSwapManager
+
+            self.host_tier = HostPageTier(int(c.host_tier_mb * 1e6))
+            self.kv_swap = KVSwapManager(self, self.host_tier)
+            if self.state_manager.prefix_cache is not None:
+                self.state_manager.prefix_cache.spill_fn = \
+                    self.kv_swap.spill_prefix_node
         model.to(device=self.device, dtype=c.dtype)
         self._num_blocks = num_blocks
         self._wrappers: Dict[Tuple[int, int], RaggedBatchWrapper] = {}
@@ -103,6 +159,9 @@ class InferenceEngineV2:
         #: with NO host repack / upload (see decode_batch_async)
         self._decode_state: Optional[Dict] = None
         self.decode_resume_hits = 0
+        #: monotonically increasing fused-window index — the ``step`` passed
+        #: to the ``decode_window`` fault-injection site
+        self.decode_windows_dispatched = 0
         #: persistent sampling generator (re-seeding each window with a
         #: constant would repeat the identical sample stream every call)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
@@ -205,12 +264,60 @@ class InferenceEngineV2:
         logits = step(self.model, self.kv.pages, self._upload(batch.pack()))
         for uid in batch.uids:
             self.state_manager.get_sequence(uid).post_forward()
+        self._touch_heat(batch.uids)
         return logits[:batch.n_seqs]
 
     def flush(self, uids: Sequence[int]) -> None:
         self._decode_state = None
         for uid in uids:
             self.state_manager.flush_sequence(uid)
+            self._uid_tenants.pop(uid, None)
+
+    # ------------------------------------------------------------------ #
+    # Memory accounting (host side)
+    # ------------------------------------------------------------------ #
+    def set_tenant(self, uid: int, tenant: Optional[str]) -> None:
+        """Label ``uid``'s KV footprint with its tenant; cleared on flush."""
+        if tenant:
+            self._uid_tenants[int(uid)] = str(tenant)
+
+    def _touch_heat(self, uids: Sequence[int]) -> None:
+        """One heat-clock tick + whole-table touch for every sequence a
+        dispatched forward covers (a decode window reads ALL of a
+        sequence's context pages; prefill writes its fresh ones)."""
+        if self.heat is None:
+            return
+        self.heat.tick()
+        blocks: List[int] = []
+        for uid in uids:
+            seq = self.state_manager.get_sequence(uid)
+            if seq is not None:
+                blocks.extend(seq.blocks)
+        self.heat.touch(blocks)
+
+    def memory_snapshot(self):
+        """Heat-tracker snapshot with live holder/tenant attribution, or
+        None when tracking is off."""
+        if self.heat is None:
+            return None
+        holders = {uid: list(seq.blocks)
+                   for uid, seq in self.state_manager._seqs.items()}
+        return self.heat.snapshot(holders=holders,
+                                  tenants=dict(self._uid_tenants))
+
+    def register_memory_sources(self, ledger) -> None:
+        """The JAX engine wires its state into the telemetry plane's
+        ``MemoryLedger``; the port has no telemetry plane yet."""
+        raise NotImplementedError(
+            "register_memory_sources needs the telemetry MemoryLedger, "
+            "which is not ported yet (ROADMAP M11); memory_snapshot() and "
+            "kv_swap.stats() give the same numbers")
+
+    def kv_used_fraction(self) -> float:
+        """Fraction of the KV block pool currently allocated (the
+        scheduler's KV-pressure signal)."""
+        total = self.state_manager.allocator.total_blocks
+        return 1.0 - self.state_manager.free_blocks / total
 
     def lifetime_reservation(self, prompt_len: int,
                              max_new: int) -> Tuple[int, int]:
@@ -219,6 +326,131 @@ class InferenceEngineV2:
         prompt+max_new under the cap)."""
         need = min(prompt_len + max_new, self.config.max_ctx)
         return need, -(-need // self.config.block_size)
+
+    # ------------------------------------------------------------------ #
+    # Radix prefix KV reuse (config.prefix_cache)
+    # ------------------------------------------------------------------ #
+    @property
+    def prefix_cache(self):
+        return self.state_manager.prefix_cache
+
+    @torch.inference_mode()
+    def _copy_pages(self, src_block: int, dst_block: int) -> None:
+        """Copy one logical page across every layer's physical slot — the
+        copy-on-write of a shared partial page."""
+        pages = self.kv.pages
+        pages.index_copy_(0, self.kv.phys_pages([dst_block]),
+                          pages.index_select(
+                              0, self.kv.phys_pages([src_block])))
+        self._decode_state = None       # pages changed behind K7's state
+        if self.heat is not None:
+            # the private copy inherits the shared page's heat: same rows,
+            # same access history
+            self.heat.transfer(src_block, dst_block)
+
+    @torch.inference_mode()
+    def _write_page_rows(self, block: int, rows) -> None:
+        """Write one logical page's canonical rows ``[L, block_size, 2*KV,
+        HD]`` (float32, host) into every layer's physical slot — the
+        restore leg of a host-tier prefix spill. The rows cross as float32
+        (from the tier's pinned buffer) and narrow to the pool's dtype on
+        the device, a pure cast."""
+        pages = self.kv.pages
+        rows = torch.as_tensor(rows).to(pages.device, non_blocking=True)
+        rows = rows.to(pages.dtype)
+        pages.index_copy_(0, self.kv.phys_pages([block]), rows)
+        self._decode_state = None
+
+    def graft_prefix(self, uid: int, tokens: Sequence[int]) -> int:
+        """Admission-side prefix reuse: graft the longest cached prefix of
+        ``tokens`` into a fresh sequence and return how many tokens it
+        covers (0 = miss / cache off); the caller prefills only the
+        remainder. Full matched pages are SHARED (one extra allocator ref
+        each); a trailing partial page is copied into a private block
+        before the graft returns — the sequence's next forward appends
+        into that page mid-row, and writing a shared page would corrupt
+        every other holder. When no block is free for the copy the partial
+        page is dropped from the match. With a host tier, the match
+        extends through host-spilled full pages, each written back into a
+        fresh block and recommitted to the trie.
+
+        Until ``share_blocks`` takes its refs, the matched pages are held
+        by the trie alone, so the evictions that make room here spare
+        them: the chain's tail is a childless refcount-1 leaf, and
+        evicting it would hand its block back as the fresh one."""
+        cache = self.prefix_cache
+        if cache is None or len(tokens) < 2:
+            return 0
+        seq = self.state_manager.get_sequence(uid)
+        if seq is not None and (seq.blocks or seq.seen_tokens):
+            raise ValueError(f"prefix graft into a non-fresh sequence "
+                             f"uid={uid}")
+        matched, blocks, partial = cache.match(list(tokens))
+        if self.kv_swap is not None and not partial:
+            # extend the trie match through host-spilled full pages: each
+            # is written into a fresh block, recommitted to the trie (which
+            # takes the owning ref), then shared like any matched page
+            alloc = self.state_manager.allocator
+            bs = self.config.block_size
+            while matched + bs <= len(tokens) - 1:
+                path = tuple(int(t) for t in tokens[:matched + bs])
+                rows = self.kv_swap.peek_prefix(path)
+                if rows is None:
+                    break
+                if alloc.free_blocks < 1:
+                    cache.evict(1, keep=blocks)
+                if alloc.free_blocks < 1:
+                    break
+                blk = int(alloc.allocate(1)[0])
+                self._write_page_rows(blk, rows)
+                cache.commit(list(tokens), blocks + [blk],
+                             upto=matched + bs)
+                alloc.free([blk])       # the trie's ref now owns the page
+                self.kv_swap.confirm_prefix(path)
+                blocks.append(blk)
+                matched += bs
+        if not matched:
+            return 0
+        self._decode_state = None
+        # create the descriptor FIRST: get_or_create can raise on the
+        # tracked-sequence cap, and nothing may be allocated before it
+        seq = self.state_manager.get_or_create_sequence(uid)
+        if partial:
+            # copy-on-write of the tail page, or shrink the match
+            alloc = self.state_manager.allocator
+            if alloc.free_blocks < 1:
+                cache.evict(1, keep=blocks)
+            if alloc.free_blocks < 1:
+                matched -= partial
+                blocks = blocks[:-1]
+                if not matched:
+                    return 0
+            else:
+                private = int(alloc.allocate(1)[0])
+                self._copy_pages(blocks[-1], private)
+                # the sequence owns `private`; share only the full pages
+                self.state_manager.share_blocks(seq, blocks[:-1],
+                                                matched - partial)
+                seq.blocks.append(private)
+                seq.seen_tokens = matched
+                return matched
+        self.state_manager.share_blocks(seq, blocks, matched)
+        return matched
+
+    def commit_prefix(self, uid: int, tokens: Sequence[int],
+                      allow_partial: bool = False) -> int:
+        """Commit ``uid``'s prompt pages to the radix cache (no-op when
+        off). Called at prefill completion (full pages only — the sequence
+        keeps appending into its partial tail) and again at retirement with
+        ``allow_partial=True``, when the tail page goes quiet for good.
+        → pages newly inserted."""
+        cache = self.prefix_cache
+        seq = self.state_manager.get_sequence(uid)
+        if cache is None or seq is None:
+            return 0
+        upto = min(len(tokens), seq.seen_tokens)
+        return cache.commit(list(tokens), seq.blocks, upto=upto,
+                            allow_partial=allow_partial)
 
     # ------------------------------------------------------------------ #
     # Fused multi-step decode (device-resident loop)
@@ -298,6 +530,30 @@ class InferenceEngineV2:
                     self.state_manager.get_sequence(uid), [int(tok)])
             meta_dev = self._upload(wrapper.finalize().pack())
 
+        # fault-injection site (DSTPU_FAULT_INJECT site=decode_window):
+        # `slow` sleeps here, `kill` dies here, `nan` poisons the FIRST
+        # scheduled sequence's cached context so the window genuinely
+        # produces non-finite logits for that row
+        self.decode_windows_dispatched += 1
+        poisoned = False
+        try:
+            inject("decode_window", step=self.decode_windows_dispatched)
+        except InjectedNaN:
+            poisoned = True
+            if resume:
+                # the resume path skipped the repack: take the true next
+                # tokens from the advanced device meta and rebuild on the
+                # host, so the window dispatches against fresh metadata
+                seed_tokens = meta_dev[:n].tolist()
+                wrapper = self._wrapper_for(bucket)
+                wrapper.clear()
+                for uid, tok in zip(uids, seed_tokens):
+                    wrapper.insert_sequence(
+                        self.state_manager.get_sequence(uid), [int(tok)])
+                meta_dev = self._upload(wrapper.finalize().pack())
+                resume = False
+            self._poison_kv(uids[0])
+
         c = self.config
         loop = build_decode_loop(
             self.cfg, max_q=bucket[0], max_seqs=bucket[1],
@@ -314,10 +570,34 @@ class InferenceEngineV2:
             seq.in_flight_tokens = steps
             seq.post_forward()
             seen[uid] = seq.seen_tokens
-        self._decode_state = {"uids": uids_t, "bucket": bucket,
-                              "meta": meta_out, "seen": seen}
+        self._touch_heat(uids)
+        # a poisoned window leaves no resumable state: its advanced meta
+        # was computed over poisoned pages
+        self._decode_state = None if poisoned else {
+            "uids": uids_t, "bucket": bucket, "meta": meta_out, "seen": seen}
         return DecodeWindow(self, toks, n, steps, resume, nonfinite,
-                            self._decode_state)
+                            self._decode_state, list(uids))
+
+    @torch.inference_mode()
+    def _poison_kv(self, uid: int) -> None:
+        """Write NaN over every privately held cached page of ``uid``
+        across all layers (the ``decode_window``/``nan`` payload). Pages
+        with more than one holder (shared through the radix cache) are
+        SKIPPED: poisoning a shared system-prompt page would leak NaN into
+        every co-tenant. A decoding sequence always owns its tail page
+        (fresh allocation or copy-on-write), which is enough to drive its
+        logits non-finite."""
+        seq = self.state_manager.get_sequence(uid)
+        if seq is None or not seq.blocks:
+            return
+        alloc = self.state_manager.allocator
+        own = [b for b in seq.blocks if alloc.refcount(b) == 1]
+        if not own:
+            logger.warning(f"nan injection skipped: uid {uid} owns no "
+                           f"private page")
+            return
+        self.kv.pages.index_fill_(0, self.kv.phys_pages(own), float("nan"))
+        self._decode_state = None
 
     # ------------------------------------------------------------------ #
     # Dynamic SplitFuse scheduling (MII-layer policy, host-only logic)
@@ -378,6 +658,20 @@ class InferenceEngineV2:
         self.last_generate_stats = dict(batcher.stats)
         return [done[u] for u in range(len(prompts))]
 
+    def serialize(self, path: str) -> None:
+        """Persist the serving parameters (reference :1100): tag ``model``
+        of the port's numpy checkpoint engine under ``path``, a universal
+        directory either package's ``load_universal`` reads."""
+        from ...checkpoint.universal.layout import universal_name
+        from ...runtime.checkpoint_engine.numpy_checkpoint_engine import (
+            NumpyCheckpointEngine,
+        )
+
+        leaves = {universal_name(name): {"param": p}
+                  for name, p in self.model.named_parameters()}
+        NumpyCheckpointEngine(path).save(
+            {"leaves": leaves, "meta": {}, "step": 0}, "model")
+
 
 class DecodeWindow:
     """Handle for an enqueued fused decode window; :meth:`tokens` waits for
@@ -385,11 +679,14 @@ class DecodeWindow:
 
     def __init__(self, engine: InferenceEngineV2, toks_dev: torch.Tensor,
                  n_seqs: int, steps: int, resumed: bool,
-                 nonfinite_dev: torch.Tensor, state: dict):
+                 nonfinite_dev: torch.Tensor, state: Optional[dict],
+                 uids: Sequence[int] = ()):
         self.engine = engine
         self.n_seqs = n_seqs
         self.steps = steps
         self.resumed = resumed
+        #: uids in row order, so the nonfinite flags map back to requests
+        self.uids = list(uids)
         self._toks_dev = toks_dev
         self._nonfinite_dev = nonfinite_dev
         self._toks: Optional[np.ndarray] = None
@@ -405,12 +702,19 @@ class DecodeWindow:
             self.nonfinite = self._nonfinite_dev[:self.n_seqs].cpu().numpy()
             self._toks_dev = None
             self._nonfinite_dev = None
-            if self.engine._decode_state is self._state:
+            if self._state is not None and \
+                    self.engine._decode_state is self._state:
                 # the last sampled token is the next window's seed: once it
                 # is host-known, resume can honour caller-supplied seeds
                 self._state["last_tokens"] = tuple(
                     int(t) for t in self._toks[-1])
         return self._toks
+
+    def nonfinite_uids(self) -> List[int]:
+        """uids whose logits went non-finite during this window (waits for
+        the window if needed)."""
+        self.tokens()
+        return [u for u, bad in zip(self.uids, self.nonfinite) if bad]
 
 
 class ContinuousBatcher:

@@ -64,14 +64,6 @@ class KVShipment:
         return len(self.tokens)
 
 
-def _phys_pages(engine, blocks: List[int], n_pages: int) -> torch.Tensor:
-    """[L * n_pages] physical page ids of a block table, layer-major."""
-    nb = engine.kv.config.num_blocks
-    phys = [b + layer * nb for layer in range(engine.cfg.num_layers)
-            for b in blocks[:n_pages]]
-    return torch.tensor(phys, dtype=torch.long, device=engine.kv.pages.device)
-
-
 @torch.inference_mode()
 def export_kv(engine, uid: int, tokens: List[int],
               n_tokens: Optional[int] = None) -> KVShipment:
@@ -90,7 +82,7 @@ def export_kv(engine, uid: int, tokens: List[int],
     bs = engine.config.block_size
     n_pages = -(-n // bs)
     c = engine.kv.config
-    pages = engine.kv.pages[_phys_pages(engine, seq.blocks, n_pages)]
+    pages = engine.kv.pages[engine.kv.phys_pages(seq.blocks[:n_pages])]
     rows = pages.reshape(engine.cfg.num_layers, n_pages * bs,
                          2 * c.num_kv_heads, c.head_dim)[:, :n]
     return KVShipment(tokens=[int(t) for t in tokens[:n]],
@@ -127,13 +119,15 @@ def import_kv(engine, shipment: KVShipment, uid: int) -> bool:
     bs = engine.config.block_size
     n_pages = -(-n // bs)
     pool = engine.kv.pages
-    rows = shipment.rows.to(device=pool.device, dtype=pool.dtype)
+    # cross devices in float32, then narrow on the pool's device: a CPU
+    # tensor (a host-tier payload) is not cast on the host first
+    rows = shipment.rows.to(pool.device, non_blocking=True).to(pool.dtype)
     pad = n_pages * bs - n
     if pad:
         rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
     flat = rows.reshape(shipment.num_layers * n_pages, bs,
                         2 * c.num_kv_heads, c.head_dim)
-    pool[_phys_pages(engine, seq.blocks, n_pages)] = flat
+    pool[engine.kv.phys_pages(seq.blocks[:n_pages])] = flat
     seq.seen_tokens = n
     seq.input_ids = list(shipment.tokens)
     engine._decode_state = None

@@ -53,3 +53,13 @@ class BlockedKVCache:
 
     def mem_bytes(self) -> int:
         return self.pages.numel() * self.pages.element_size()
+
+    def phys_pages(self, blocks) -> torch.Tensor:
+        """Physical pages of logical ``blocks`` in every layer, layer-major
+        (``block + layer * num_blocks``), as a long tensor on the pool's
+        device."""
+        dev = self.pages.device
+        b = torch.as_tensor([int(x) for x in blocks], dtype=torch.long,
+                            device=dev)
+        layers = torch.arange(self.config.num_layers, device=dev)
+        return (layers[:, None] * self.config.num_blocks + b[None]).reshape(-1)

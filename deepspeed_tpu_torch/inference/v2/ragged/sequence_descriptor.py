@@ -1,13 +1,14 @@
 """Per-sequence host state (counterpart of
 ``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``; reference:
 inference/v2/ragged/sequence_descriptor.py:59 ``DSSequenceDescriptor`` and
-ragged_manager.py:19 ``DSStateManager``). Fault injection and the prefix
-cache's page sharing are left to a later slice."""
+ragged_manager.py:19 ``DSStateManager``), with the ``kv_alloc`` fault
+site and the prefix cache's page sharing."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
 
+from ....runtime.fault.injection import InjectedExhausted, inject
 from ....utils.logging import logger
 from .blocked_allocator import BlockedAllocator
 
@@ -31,7 +32,13 @@ class DSSequenceDescriptor:
 
 
 class DSStateManager:
-    """uid → descriptor registry + KV block bookkeeping."""
+    """uid → descriptor registry + KV block bookkeeping.
+
+    When a :class:`~.prefix_cache.RadixPrefixCache` is attached
+    (``prefix_cache``), cached pages are RECLAIMABLE capacity: an
+    allocation that would otherwise fail first evicts cold cache pages
+    (refcount 1, LRU) and retries, so the cache can grow into every idle
+    block without ever starving admission."""
 
     def __init__(self, num_blocks: int, block_size: int = 128,
                  max_tracked_sequences: int = 2048):
@@ -39,10 +46,15 @@ class DSStateManager:
         self.allocator = BlockedAllocator(num_blocks)
         self.max_tracked_sequences = max_tracked_sequences
         self._seqs: Dict[int, DSSequenceDescriptor] = {}
+        self.prefix_cache = None       # set by InferenceEngineV2 when enabled
 
     @property
     def free_blocks(self) -> int:
         return self.allocator.free_blocks
+
+    @property
+    def n_tracked_sequences(self) -> int:
+        return len(self._seqs)
 
     def get_sequence(self, uid: int) -> Optional[DSSequenceDescriptor]:
         return self._seqs.get(uid)
@@ -66,10 +78,37 @@ class DSStateManager:
         need = self.blocks_needed(seq, new_tokens)
         if need == 0:
             return True
+        # injection site: `exhausted` makes a GENUINE allocation (need > 0)
+        # report failure, so schedulers see transient KV exhaustion where
+        # their backpressure must handle it; no-op allocations of already
+        # reserved sequences never fire
+        try:
+            inject("kv_alloc")
+        except InjectedExhausted:
+            return False
+        if need > self.allocator.free_blocks and self.prefix_cache is not None:
+            # cached prefix pages are free capacity: evict cold ones (LRU,
+            # trie-only holders) before reporting exhaustion
+            self.prefix_cache.evict(need - self.allocator.free_blocks)
         if need > self.allocator.free_blocks:
             return False
         seq.blocks.extend(int(b) for b in self.allocator.allocate(need))
         return True
+
+    def share_blocks(self, seq: DSSequenceDescriptor, blocks,
+                     n_tokens: int) -> None:
+        """Graft already-cached KV pages into a FRESH sequence: the blocks
+        are appended to its table with one extra allocator reference each,
+        and the first ``n_tokens`` rows they cover count as seen. The
+        caller (engine ``graft_prefix``) guarantees the attested tokens
+        match; this layer only does the accounting."""
+        if seq.blocks or seq.seen_tokens:
+            raise ValueError(
+                f"prefix graft into a non-fresh sequence uid={seq.uid}")
+        blocks = [int(b) for b in blocks]
+        self.allocator.ref(blocks)
+        seq.blocks.extend(blocks)
+        seq.seen_tokens = int(n_tokens)
 
     def flush_sequence(self, uid: int) -> None:
         """Release a sequence's blocks (reference engine_v2.flush :242)."""

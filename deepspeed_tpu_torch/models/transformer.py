@@ -274,7 +274,7 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     if cfg.remat and cfg.remat_policy != "nothing_saveable":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; only "
-            f"'nothing_saveable' (ROADMAP Queue 3)")
+            f"'nothing_saveable' (ROADMAP M9)")
     S = tokens.shape[1]
     x = F.embedding(tokens, params["embed.embedding"])
     cos, sin = rope_tables(S, cfg.head_dim, cfg.rope_theta, device=x.device)

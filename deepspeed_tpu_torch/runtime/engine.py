@@ -153,11 +153,22 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ #
     # Introspection (reference names)
     # ------------------------------------------------------------------ #
+    @property
+    def global_samples(self) -> int:
+        return self.micro_steps * self.train_micro_batch_size_per_gpu() * \
+            self.dp_world_size
+
     def train_batch_size(self) -> int:
         return self.config.train_batch_size
 
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.config.train_micro_batch_size_per_gpu
+
     def gradient_accumulation_steps(self) -> int:
         return self.config.gradient_accumulation_steps
+
+    def zero_optimization_stage(self) -> int:
+        return self.config.zero_stage
 
     def get_lr(self):
         return [float(self._schedule_fn(self.global_steps))]
@@ -343,6 +354,24 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch) -> torch.Tensor:
         return self.forward(batch)
+
+    def no_sync(self):
+        """Reference ``engine.no_sync()``: the gradients are exchanged only
+        at the optimizer step (``train_batch``), so there is nothing to
+        suppress between boundaries — a no-op context."""
+        import contextlib
+
+        return contextlib.nullcontext()
+
+    def zero_grad(self) -> None:
+        """Drop the gradients accumulated since the last update."""
+        self._zero_grads()
+
+    def get_fp32_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The float32 masters on the host, by dotted name (reference
+        ``get_fp32_state_dict``; every rank holds the whole model)."""
+        return {name: p.detach().to("cpu", torch.float32, copy=True)
+                for name, p in self.params.items()}
 
     # ------------------------------------------------------------------ #
     # Checkpointing (the universal layout; JAX engine signatures)

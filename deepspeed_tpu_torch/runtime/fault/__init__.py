@@ -1,6 +1,7 @@
-"""Checkpoint integrity for the port (counterpart of the
-``manifest``/``atomic`` part of ``deepspeed_tpu/runtime/fault``); retry,
-the watchdog and fault injection are ROADMAP M11."""
+"""Checkpoint integrity and fault injection for the port (counterpart of
+the ``manifest``/``atomic``/``injection`` part of
+``deepspeed_tpu/runtime/fault``); retry and the watchdog are ROADMAP
+M11."""
 from .atomic import atomic_write_text, fsync_dir
 from .manifest import (CheckpointCorruptError, is_valid_checkpoint,
                        read_manifest, verify_checkpoint, write_manifest)

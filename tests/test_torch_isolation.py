@@ -72,6 +72,34 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
+SERVING_TIER_MODULES = (
+    "runtime/fault/injection.py",
+    "runtime/swap_tensor/host_tier.py",
+    "inference/v2/ragged/prefix_cache.py",
+    "inference/v2/ragged/page_heat.py",
+    "inference/v2/ragged/kv_swap.py",
+)
+
+
+@pytest.mark.parametrize("rel", SERVING_TIER_MODULES)
+def test_serving_tier_modules_stand_alone(rel):
+    """The prefix cache, page heat, host tier, KV swap and the fault
+    injector import neither JAX nor the JAX package, not even its
+    stdlib-only ``injection.py``: the port keeps its own copies."""
+    path = os.path.join(PKG_DIR, rel)
+    mods = list(_imports(path))
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                  "deepspeed_tpu")]
+    assert mods and bad == [], f"{rel} imports {bad}"
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    # relative imports stay inside the port
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            depth = rel.count("/") + 1
+            assert node.level <= depth, f"{rel}: import leaves the package"
+
+
 def test_entry_points_need_cuda_unless_told_otherwise():
     """device=None means CUDA; without it the port raises instead of
     quietly running on the CPU."""

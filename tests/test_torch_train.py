@@ -7,7 +7,10 @@ same converted weights and the same numpy inputs, in float32:
     the fused RMSNorm+matmul (their plain versions on CPU tensors) and the
     JAX package's select its XLA composition;
   * five ``train_batch`` steps (AdamW, WarmupLR, clipping 1.0, gas 2)
-    against the JAX engine's on a one-device mesh;
+    against the JAX engine's on a one-device mesh, with the engine's
+    introspection (``get_fp32_state_dict``, ``global_samples``, the batch
+    and ZeRO stage getters) and five imperative steps that drop a stray
+    micro-batch by ``zero_grad``;
   * the optimizers against optax, the schedules and the dynamic loss
     scaler against the JAX functions, the config errors against the JAX
     config's.
@@ -53,14 +56,6 @@ def jax_params():
     cfg = jax_tf.TransformerConfig.tiny()
     params = jax_tf.init_params(cfg, jax.random.PRNGKey(0))
     return params, jax.tree.map(np.asarray, params)
-
-
-@pytest.fixture
-def one_device_mesh():
-    topo = initialize_mesh(TopologyConfig(), devices=jax.devices()[:1],
-                           force=True)
-    yield topo
-    reset_topology()
 
 
 def _tokens(seed, batch):
@@ -159,36 +154,96 @@ ENGINE_CONFIG = {
 }
 
 
-def test_engine_five_steps_match_jax(jax_params, one_device_mesh):
-    params, tree = jax_params
+@pytest.fixture(scope="module")
+def jax_five_steps(jax_params):
+    """Five ``train_batch`` steps of the JAX engine on a one-device mesh,
+    and what its entry points report after them."""
+    params, _ = jax_params
     tokens = _tokens(3, 4)
-    jcfg = jax_tf.TransformerConfig.tiny()
-    j_engine, _, _, _ = deepspeed_tpu.initialize(
-        model=jax_tf.CausalLM(jcfg), model_parameters=params,
-        config=ENGINE_CONFIG, topology=one_device_mesh)
-    j_losses = [float(j_engine.train_batch({"input_ids": jnp.asarray(tokens)}))
-                for _ in range(5)]
+    topo = initialize_mesh(TopologyConfig(), devices=jax.devices()[:1],
+                           force=True)
+    try:
+        j_engine, _, _, _ = deepspeed_tpu.initialize(
+            model=jax_tf.CausalLM(jax_tf.TransformerConfig.tiny()),
+            model_parameters=params, config=ENGINE_CONFIG, topology=topo)
+        losses = [float(j_engine.train_batch(
+            {"input_ids": jnp.asarray(tokens)})) for _ in range(5)]
+        return {"tokens": tokens, "losses": losses,
+                "global_steps": j_engine.global_steps,
+                "micro_steps": j_engine.micro_steps,
+                "lr": j_engine.get_lr(),
+                "params": _flat(jax.tree.map(np.asarray,
+                                             j_engine.state.params)),
+                "fp32": _flat(j_engine.get_fp32_state_dict()),
+                "global_samples": j_engine.global_samples,
+                "micro": j_engine.train_micro_batch_size_per_gpu(),
+                "stage": j_engine.zero_optimization_stage(),
+                "no_sync": type(j_engine.no_sync())}
+    finally:
+        reset_topology()
 
+
+def test_engine_five_steps_match_jax(jax_params, jax_five_steps):
+    _, tree = jax_params
+    ref = jax_five_steps
     pcfg = TransformerConfig.tiny()
     model = CausalLM(pcfg, params_from_numpy(tree, pcfg), trainable=True)
     engine, optimizer, loader, _ = deepspeed_tpu_torch.initialize(
         model=model, config=ENGINE_CONFIG, device="cpu")
     assert loader is None and optimizer is engine.optimizer
-    batch = {"input_ids": torch.from_numpy(tokens).long()}
+    batch = {"input_ids": torch.from_numpy(ref["tokens"]).long()}
     losses = [float(engine.train_batch(batch)) for _ in range(5)]
 
-    np.testing.assert_allclose(losses, j_losses, rtol=1e-5)
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
     assert losses[0] == losses[1]          # WarmupLR: lr(0) = 0
     assert losses[4] < losses[0]
-    assert engine.global_steps == j_engine.global_steps == 5
-    assert engine.micro_steps == j_engine.micro_steps == 10
+    assert engine.global_steps == ref["global_steps"] == 5
+    assert engine.micro_steps == ref["micro_steps"] == 10
     assert engine.skipped_steps == 0
-    np.testing.assert_allclose(engine.get_lr(), j_engine.get_lr(), rtol=1e-6)
+    np.testing.assert_allclose(engine.get_lr(), ref["lr"], rtol=1e-6)
     # the masters share the model's storage: the model holds the result
-    final_j = _flat(jax.tree.map(np.asarray, j_engine.state.params))
     for name, p in model.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), final_j[name],
+        np.testing.assert_allclose(p.detach().numpy(), ref["params"][name],
                                    rtol=0, atol=1e-5, err_msg=name)
+    # the reference's introspection (ROADMAP Queue 3.2): the float32
+    # masters on the host by name, the sample and batch counters
+    fp32 = engine.get_fp32_state_dict()
+    assert set(fp32) == set(ref["fp32"])
+    for name, t in fp32.items():
+        assert t.dtype == torch.float32 and t.device.type == "cpu"
+        np.testing.assert_allclose(t.numpy(), ref["fp32"][name], rtol=0,
+                                   atol=1e-5, err_msg=name)
+    assert engine.global_samples == ref["global_samples"] == 20
+    assert engine.train_micro_batch_size_per_gpu() == ref["micro"] == 2
+    assert engine.zero_optimization_stage() == ref["stage"] == 0
+
+
+def test_zero_grad_and_no_sync_match_jax(jax_params, jax_five_steps):
+    """A stray micro-batch's gradients, dropped by ``zero_grad``, leave
+    five imperative steps (their micro-batches under ``no_sync``, a no-op
+    context in both packages) at the JAX engine's train_batch masters."""
+    _, tree = jax_params
+    ref = jax_five_steps
+    cfg = TransformerConfig.tiny()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg, params_from_numpy(tree, cfg)),
+        config=ENGINE_CONFIG, device="cpu")
+    assert type(engine.no_sync()) is ref["no_sync"]
+    tokens = torch.from_numpy(ref["tokens"]).long()
+    stray = {"input_ids": torch.flip(tokens[:2], dims=[1])}
+    for _ in range(5):
+        engine.backward(stray)
+        engine.zero_grad()
+        engine.micro_steps -= 1               # the stray was not a step
+        assert all(p.grad is None for p in engine.params.values())
+        with engine.no_sync():
+            for mb in tokens.reshape(2, 2, SEQ):
+                engine.backward({"input_ids": mb})
+        engine.step()
+    assert engine.global_steps == 5 and engine.micro_steps == 10
+    for name, t in engine.get_fp32_state_dict().items():
+        np.testing.assert_allclose(t.numpy(), ref["fp32"][name], rtol=0,
+                                   atol=1e-5, err_msg=name)
 
 
 def test_imperative_path_matches_train_batch(jax_params):
