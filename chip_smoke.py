@@ -183,6 +183,31 @@ non-zero before the last line is printed:
      window's; K6's and K7's counters must rise; times to first token,
      prefill tokens saved, and the spills' and restores' bytes and
      seconds printed beside the card's name and power limit;
+ 19a. (after phase 19, on phase 4's model and prompts) speculative
+     decoding (``phase_speculative``): vanilla fused decode and
+     ``speculative_decode`` (k = ``SPEC_K``, ``SPEC_NEW`` tokens) with
+     ``NGramDrafter`` (twice: the same tokens), a same-weights draft
+     engine, a ``SPEC_DRAFT_LAYERS``-layer draft and an always-wrong
+     drafter (one window a token, KV lengths and blocks as the rollbacks
+     leave them); every verify window launches K6 once a layer and K7
+     never; a NaN-poisoned verify window flags only its first uid and
+     its batchmate equals a clean repeat bit for bit; every emitted
+     token, and every first rejected candidate of the same-weights
+     draft, within ``SPEC_MARGIN`` of the argmax of a teacher-forced
+     re-score (``spec_content_check``: ``SPEC_MARGIN_FACTOR`` x the
+     card's own paged-vs-gather difference on that batch, at most
+     ``SPEC_MARGIN_CAP``, the two re-scores within
+     ``SERVING_LOGITS_REL``), and the run with ``rollback_kv`` skipped
+     at least ``SPEC_FAULT_FACTOR`` x it;
+     per-user tokens/s, acceptance and K6 launches a window printed;
+ 19b. (after ``del model``) the universal families (``phase_families``):
+     Bloom-7b1 at its published widths and depth (ALiBi) and Falcon-7b
+     at its published widths, 8 of 32 layers (71 query heads on one KV
+     head): ``generate`` (untimed, then ``REPEATS`` timed; K6 and K7 must
+     launch), paged vs gather within ``SERVING_LOGITS_REL``, and on Bloom
+     ``speculative_decode`` with ``NGramDrafter`` under the content
+     check (the margin at most ``SPEC_MARGIN_CAP``); weights and pool
+     bytes printed;
  20. (last) hold the data-parallel kernels against their plain versions:
      K9b ``quant_pack_wire(bits=4)`` bit for bit on the int8 phase's edge
      batches (even group sizes) and on a 525 M-element float32 leaf of the
@@ -1198,30 +1223,8 @@ def phase_main_path(torch, ops):
     torch.cuda.empty_cache()
 
     # paged vs gather on one batch, same weights, fresh engine each
-    batch = [prompts[1][:100], prompts[2][:120], prompts[3][:36]]
-    logits = {}
-    for impl in ("paged", "gather"):
-        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
-            attn_impl=impl), device=DEVICE)
-        logits[impl] = eng.put([0, 1, 2], batch)
-        check(tuple(logits[impl].shape) == (3, cfg.vocab_size),
-              f"put({impl}) logits shape {tuple(logits[impl].shape)}")
-        check(bool(torch.isfinite(logits[impl]).all()),
-              f"put({impl}) logits not finite")
-        del eng
-        torch.cuda.empty_cache()
-    diff = logits["paged"] - logits["gather"]
-    rel = float(diff.norm() / logits["gather"].norm())
-    agree = float((logits["paged"].argmax(-1) ==
-                   logits["gather"].argmax(-1)).float().mean())
-    # bf16 activations (8 mantissa bits) through every layer's residual
-    # stream: the two attention paths round at different places
-    log(f"paged vs gather put: rel l2 err {rel:.3e} (tol "
-        f"{SERVING_LOGITS_REL}), max abs {float(diff.abs().max()):.3e}, "
-        f"argmax agree {agree:.2f}")
-    check(rel <= SERVING_LOGITS_REL,
-          f"paged vs gather logits differ: rel {rel}")
-    torch.cuda.synchronize()
+    paged_vs_gather(torch, model, [prompts[1][:100], prompts[2][:120],
+                                   prompts[3][:36]], "main path")
     return launches, serving, model, prompts, first_out
 
 
@@ -4150,6 +4153,635 @@ def phase_prefix_serving(torch, ops, model):
     return out
 
 
+# --------------------------------------------------------------------- #
+# Speculative decoding and the universal families (ROADMAP M7.5, M7.6)
+# --------------------------------------------------------------------- #
+SPEC_NEW = 32                      # new tokens a stream: the seed and 31
+SPEC_K = 4                         # draft candidates a window
+SPEC_DRAFT_LAYERS = 2              # the small draft model's depth
+#: the content check's rule. SPEC_MARGIN = SPEC_MARGIN_FACTOR x the
+#: largest |paged - gather| logit difference on the re-score batch: if two
+#: paths' logits differ by at most d everywhere, a token that is the
+#: argmax under one lies at most 2d below the other's largest logit. So an
+#: emitted token may sit below the re-score's argmax by at most
+#: SPEC_MARGIN (a near-tie of two kernels' roundings), and a planted fault
+#: must read at least SPEC_FAULT_FACTOR x SPEC_MARGIN
+SPEC_MARGIN_FACTOR = 2.0
+SPEC_FAULT_FACTOR = 10.0
+#: a ceiling on SPEC_MARGIN whatever the run reads. The rule reads 0.215
+#: on llama3-8B and 0.219 on Bloom-7b1 (bf16, an H100), and the re-scores
+#: are held to SERVING_LOGITS_REL as well: a verify path that drifted
+#: from gather fails here instead of widening its own margin
+SPEC_MARGIN_CAP = 0.5
+#: bigscience/bloom-7b1 config.json: n_layer 30, n_head 32, hidden 4096,
+#: vocab 250880, layer_norm_epsilon 1e-5, ALiBi, embedding LayerNorm,
+#: tied head; FFN 4 x hidden, tanh gelu (modeling_bloom)
+BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096,
+                 intermediate_size=16384, num_layers=30, num_heads=32,
+                 num_kv_heads=32, max_seq_len=2048, pos="alibi",
+                 norm="layernorm", norm_eps=1e-5, mlp="gelu",
+                 embed_layernorm=True, qkv_bias=True, out_bias=True,
+                 tie_embeddings=True)
+#: tiiuae/falcon-7b config.json: n_layer 32, n_head 71, multi_query (one
+#: KV head), hidden 4544, vocab 65024, parallel_attn, bias false, rotary
+#: (theta 10000), layer_norm_epsilon 1e-5; FFN 4 x hidden, erf gelu, tied
+#: head (modeling_falcon). Depth cut to FALCON_LAYERS of 32 to bound the
+#: run's time
+FALCON_7B = dict(vocab_size=65024, hidden_size=4544,
+                 intermediate_size=18176, num_layers=32, num_heads=71,
+                 num_kv_heads=1, max_seq_len=2048, pos="rope",
+                 rope_theta=10000.0, norm="layernorm", norm_eps=1e-5,
+                 mlp="gelu", gelu_exact=True, parallel_attn=True,
+                 qkv_bias=False, out_bias=False, tie_embeddings=True)
+FALCON_LAYERS = 8
+FAMILY_NEW = 64                    # generate's new tokens a prompt
+FAMILY_SPEC_NEW = 16               # Bloom's speculative stream
+FAMILY_MAX_SEQS = 8
+
+
+class WrongDrafter:
+    """Drafts the seed plus one, k times: rejected at the first candidate
+    unless the model's greedy token is that, so every window rolls back."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def draft(self, uid, tokens, k):
+        return [(int(tokens[-1]) + 1) % self.vocab] * k
+
+    def flush(self, uid):
+        pass
+
+
+class RecordingDrafter:
+    """A drafter that keeps each call's (uid, stream length, draft)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def draft(self, uid, tokens, k):
+        d = self.inner.draft(uid, tokens, k)
+        self.calls.append((uid, len(tokens), list(d)))
+        return d
+
+    def flush(self, uid):
+        self.inner.flush(uid)
+
+
+def spec_prefill(eng, uids, prompts):
+    """``put`` each prompt in the engine's token-budget chunks → the last
+    chunk's logits rows ``[n, V]`` (float32, on the card)."""
+    import torch
+
+    budget = eng.config.max_tokens
+    rows = []
+    for uid, p in zip(uids, prompts):
+        for i in range(0, len(p), budget):
+            logits = eng.put([uid], [p[i:i + budget]])
+        rows.append(logits[0])
+    return torch.stack(rows)
+
+
+def forced_logits(torch, eng, uids, chunks):
+    """One ``verify_mode`` forward (the logits of every position; K6 on the
+    paged path) over each uid's chunk, appended at its current length:
+    teacher forcing in the engine's own batches. → ``[sum len, V]``
+    float32, the uids' rows in order."""
+    from deepspeed_tpu_torch.inference.v2.model_runner import \
+        build_ragged_step
+
+    sm = eng.state_manager
+    n = sum(len(c) for c in chunks)
+    check(n <= eng.config.max_tokens, f"forced batch of {n} tokens")
+    bucket = eng.bucket_for(n, len(uids))
+    wrapper = eng._wrapper_for(bucket)
+    wrapper.clear()
+    for uid, c in zip(uids, chunks):
+        seq = sm.get_or_create_sequence(uid)
+        check(sm.maybe_allocate_kv(seq, len(c)), f"uid {uid}: no KV room")
+        wrapper.insert_sequence(seq, [int(t) for t in c])
+    batch = wrapper.finalize()
+    step = build_ragged_step(
+        eng.cfg, max_q=bucket[0], num_blocks=eng._num_blocks,
+        attn_impl=eng.config.attn_impl, max_seqs=bucket[1],
+        max_blocks=wrapper.max_blocks, verify_mode=True)
+    with torch.inference_mode():
+        logits = step(eng.model, eng.kv.pages, eng._upload(batch.pack()))
+    for uid in uids:
+        sm.get_sequence(uid).post_forward()
+    return logits[:n]
+
+
+def stream_rows(torch, eng, uids, prompt_lens, first, streams):
+    """Each stream's re-score: row j holds the logits at the position that
+    emitted ``stream[j]`` (row 0 is the prompt's last, ``first``; the rest
+    come from one forced forward over ``stream[:-1]``); the uids are
+    rolled back to their prompts afterwards. → list of ``[len, V]``."""
+    forced = forced_logits(torch, eng, uids, [s[:-1] for s in streams])
+    for uid, n in zip(uids, prompt_lens):
+        eng.rollback_kv(uid, n)
+    out, at = [], 0
+    for i, s in enumerate(streams):
+        out.append(torch.cat([first[i:i + 1], forced[at:at + len(s) - 1]]))
+        at += len(s) - 1
+    return out
+
+
+def gaps_of(torch, rows, tokens):
+    """Largest logit less the logit of ``tokens`` (one a row), a tensor."""
+    idx = torch.tensor(tokens, device=rows.device)[:, None]
+    return rows.max(-1).values - rows.gather(1, idx)[:, 0]
+
+
+def rejected_candidates(calls, prompt_lens, streams, uids):
+    """The first rejected candidate of every recorded draft: ``(stream,
+    position j, candidate)``. A draft made on ``prompt + stream[:m]``
+    proposes ``stream[m:]``; its first mismatch at ``m + a`` had the
+    accepted stream up to there as context, as the re-score has."""
+    out = []
+    for uid, hist_len, d in calls:
+        i = uids.index(uid)
+        m = hist_len - prompt_lens[i]
+        s = streams[i]
+        a = 0
+        while a < len(d) and m + a < len(s) and d[a] == s[m + a]:
+            a += 1
+        if a < len(d) and m + a < len(s):
+            out.append((i, m + a, d[a]))
+    return out
+
+
+def spec_content_check(torch, model, prompts, runs, candidates=None,
+                       fault=None, **engine_kw):
+    """Speculation changes speed, never content: re-score every run's
+    streams teacher-forced on a fresh paged engine (``stream_rows``) and
+    hold each emitted token's gap (the re-score's largest logit less the
+    token's) to ``SPEC_MARGIN``. The first run's batch, re-scored on a
+    gather engine too, sets ``SPEC_MARGIN`` (the rule at
+    ``SPEC_MARGIN_FACTOR``, at most ``SPEC_MARGIN_CAP``; the two re-scores
+    within ``SERVING_LOGITS_REL``). ``candidates``: per run, the first rejected
+    draft candidates ``(stream, position, token)``, held to the margin as
+    well. ``fault``: a run with a planted fault, whose largest gap must
+    read at least ``SPEC_FAULT_FACTOR`` x the margin, and is not held to
+    it. → (margin record, per-run results)."""
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+
+    uids = list(range(len(prompts)))
+    lens = [len(p) for p in prompts]
+    names = list(runs)
+    rows = {}
+    for impl in ("gather", "paged"):
+        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            attn_impl=impl, **engine_kw), device=DEVICE)
+        first = spec_prefill(eng, uids, prompts)
+        rows[impl] = stream_rows(torch, eng, uids, lens, first,
+                                 runs[names[0]])
+        if impl == "gather":
+            del eng, first
+            _free(torch)
+    for r in rows["paged"] + rows["gather"]:
+        check(bool(torch.isfinite(r).all()), "re-score logits not finite")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(rows["paged"], rows["gather"]))
+    rel = max(rel_l2(torch, a, b)
+              for a, b in zip(rows["paged"], rows["gather"]))
+    margin = SPEC_MARGIN_FACTOR * diff
+    check(margin > 0, "paged and gather re-scores are bit-identical: the "
+                      "margin rule has no difference to scale")
+    check(rel <= SERVING_LOGITS_REL,
+          f"content check: paged vs gather re-scores differ: rel l2 "
+          f"{rel:.3e} > {SERVING_LOGITS_REL}")
+    check(margin <= SPEC_MARGIN_CAP,
+          f"content check: SPEC_MARGIN {margin:.4e} > the cap "
+          f"{SPEC_MARGIN_CAP}: the verify path drifted from gather")
+    del rows["gather"]
+    record = {"paged_vs_gather_max_abs": diff, "paged_vs_gather_rel_l2": rel,
+              "spec_margin": margin, "spec_margin_cap": SPEC_MARGIN_CAP,
+              "rule": f"{SPEC_MARGIN_FACTOR} x max |paged - gather| on the "
+              f"{names[0]} re-score batch, at most {SPEC_MARGIN_CAP}"}
+    log(f"content check: paged vs gather on the {names[0]} batch: max abs "
+        f"{diff:.4e}, rel l2 {rel:.3e}; SPEC_MARGIN {margin:.4e}")
+    out = {}
+    for name in names:
+        streams = runs[name]
+        r = rows["paged"] if name == names[0] else stream_rows(
+            torch, eng, uids, lens, first, streams)
+        gaps = torch.cat([gaps_of(torch, ri, s) for ri, s in
+                          zip(r, streams)])
+        res = {"positions": int(gaps.numel()),
+               "max_gap": float(gaps.max()),
+               "off_argmax_share": float((gaps > 0).float().mean()),
+               "agree_with_first_run": sum(
+                   a == b for s, t in zip(streams, runs[names[0]])
+                   for a, b in zip(s, t)) / sum(len(s) for s in streams)}
+        cands = (candidates or {}).get(name, [])
+        if cands:
+            cg = [float(r[i][j].max() - r[i][j][c]) for i, j, c in cands]
+            res["rejected_candidates"] = len(cg)
+            res["rejected_candidate_max_gap"] = max(cg)
+            check(max(cg) <= margin,
+                  f"content check {name}: a rejected draft candidate lies "
+                  f"{max(cg):.4e} below the argmax (> SPEC_MARGIN "
+                  f"{margin:.4e}): the draft and the verify disagree beyond "
+                  f"a near-tie")
+        log(f"content check {name}: {res['positions']} positions, max gap "
+            f"{res['max_gap']:.4e} ({res['max_gap'] / margin:.2f} x "
+            f"SPEC_MARGIN), off the argmax {res['off_argmax_share']:.4f}, "
+            f"tokens equal to {names[0]}'s {res['agree_with_first_run']:.3f}"
+            + (f"; {len(cands)} rejected candidates, max gap "
+               f"{res['rejected_candidate_max_gap']:.4e}" if cands else ""))
+        if name == fault:
+            check(res["max_gap"] >= SPEC_FAULT_FACTOR * margin,
+                  f"planted fault {name}: max gap {res['max_gap']:.4e} < "
+                  f"{SPEC_FAULT_FACTOR} x SPEC_MARGIN {margin:.4e}")
+        else:
+            check(res["max_gap"] <= margin,
+                  f"content check {name}: an emitted token lies "
+                  f"{res['max_gap']:.4e} below the re-score's argmax "
+                  f"(> SPEC_MARGIN {margin:.4e})")
+        out[name] = res
+        del r, gaps
+    del eng, first, rows
+    _free(torch)
+    return record, out
+
+
+def spec_run(torch, ops, eng, drafter, uids, prompts, seeds, steps,
+             rollback=True):
+    """``speculative_decode`` from the prefilled prompts, timed, with K6's
+    and K7's launches inside the target's verify windows counted (a draft
+    engine's own launches are left out); ``rollback=False`` plants the
+    fault: rejected rows stay in the context. The uids are rolled back to
+    their prompts afterwards and the drafter flushed. → (streams, seed
+    first, ``SPEC_NEW`` tokens; record)."""
+    from deepspeed_tpu_torch.inference.v2.speculative import \
+        speculative_decode
+
+    inside = {"k6": 0, "k7": 0}
+    verify = eng.verify_decode
+
+    def counted(*args, **kw):
+        k6 = ops.ragged_paged_attention.launches
+        k7 = ops.decode_paged_attention.launches
+        res = verify(*args, **kw)
+        inside["k6"] += ops.ragged_paged_attention.launches - k6
+        inside["k7"] += ops.decode_paged_attention.launches - k7
+        return res
+
+    eng.verify_decode = counted
+    if not rollback:
+        eng.rollback_kv = lambda uid, new_seen: None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = speculative_decode(
+            eng, drafter, uids, seeds,
+            [list(p) + [s] for p, s in zip(prompts, seeds)], steps, SPEC_K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.verify_decode
+        if not rollback:
+            del eng.rollback_kv
+    sm = eng.state_manager
+    rec = {**stats, "wall_s": wall, "per_user_tok_s": steps / wall,
+           "verify_k6_launches": inside["k6"],
+           "verify_k7_launches": inside["k7"],
+           "k6_launches_per_window": inside["k6"] / stats["windows"],
+           "seen": [sm.get_sequence(u).seen_tokens for u in uids],
+           "blocks": [sm.get_sequence(u).cur_allocated_blocks for u in uids]}
+    check(inside["k6"] == eng.cfg.num_layers * stats["windows"],
+          f"verify windows launched K6 {inside['k6']} times in "
+          f"{stats['windows']} windows of {eng.cfg.num_layers} layers")
+    check(inside["k7"] == 0, "a verify window launched K7")
+    for uid, p in zip(uids, prompts):
+        eng.rollback_kv(uid, len(p))
+        drafter.flush(uid)
+    streams = [[s] + out[u][:steps] for u, s in zip(uids, seeds)]
+    return streams, rec
+
+
+def phase_speculative(torch, ops, model, prompts):
+    """Speculative decoding on the llama3-8B serving model (bf16, page 64,
+    the default engine): the 8 prompts, ``SPEC_NEW`` new tokens each
+    (the seed and 31), k = ``SPEC_K``, after one prefill whose KV every
+    run reuses (each run ends with ``rollback_kv`` to the prompts).
+
+    1. vanilla fused decode, one window of 31 steps (K7);
+    2. ``speculative_decode`` (K6 in every verify window, once a layer,
+       K7 never) with ``NGramDrafter`` twice (the same tokens), a
+       same-weights draft engine (a second engine over this model object,
+       its own small pool, no weight copy), a ``SPEC_DRAFT_LAYERS``-layer
+       draft at llama3-8B widths from another seed, and an always-wrong
+       drafter (one window a token, no draft accepted, the KV length the
+       prompt plus the tokens produced, the window's blocks kept); then
+       the always-wrong drafter with ``rollback_kv`` skipped (the planted
+       fault);
+    3. a ``decode_window``/``nan`` verify window (``DSTPU_FAULT_INJECT``)
+       flags only its first uid and rolls its KV length back; its
+       batchmate's chain and greedy vector equal a clean repeat's bit for
+       bit; after ``flush`` the free count is back to its start;
+    4. the content check (``spec_content_check``) of every run.
+    Per-user tokens/s, acceptance, windows, drafting and verify seconds
+    and K6 launches a window are printed beside the card; not gated."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import (CausalLM, InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.speculative import (
+        DraftModelDrafter, NGramDrafter)
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.runtime.fault import injection
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    uids = list(range(len(prompts)))
+    lens = [len(p) for p in prompts]
+    steps = SPEC_NEW - 1
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                            device=DEVICE)
+    sm = eng.state_manager
+    bs = eng.config.block_size
+    free0 = sm.free_blocks
+    seeds = [int(t) for t in spec_prefill(eng, uids, prompts).argmax(-1)]
+    runs, timing = {}, {}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.decode_batch(uids, seeds, steps)
+    wall = time.perf_counter() - t0
+    runs["vanilla"] = [[s] + [int(t) for t in toks[:, i]]
+                       for i, s in enumerate(seeds)]
+    timing["vanilla"] = {"wall_s": wall, "per_user_tok_s": steps / wall}
+    for uid, n in zip(uids, lens):
+        eng.rollback_kv(uid, n)
+
+    def run(name, drafter, **kw):
+        runs[name], timing[name] = spec_run(torch, ops, eng, drafter, uids,
+                                            prompts, seeds, steps, **kw)
+        t = timing[name]
+        log(f"speculative {name}: {t['windows']} windows, acceptance "
+            f"{t['acceptance_rate']:.3f} ({t['accepted_draft']} of "
+            f"{t['drafted']}), draft {t['draft_s']:.3f} s vs verify "
+            f"{t['verify_s']:.3f} s, K6 {t['k6_launches_per_window']:.0f} a "
+            f"window, per-user {t['per_user_tok_s']:.1f} tok/s (vanilla "
+            f"{timing['vanilla']['per_user_tok_s']:.1f}); {CARD}")
+
+    run("ngram", NGramDrafter())
+    run("ngram_repeat", NGramDrafter())
+    check(runs["ngram_repeat"] == runs["ngram"],
+          "two identical n-gram runs emitted different tokens")
+    draft_blocks = sum(-(-(n + SPEC_NEW + 2 * SPEC_K) // bs) for n in lens)
+    same_eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        num_blocks=draft_blocks), device=DEVICE)
+    same = RecordingDrafter(DraftModelDrafter(same_eng))
+    run("same_weights", same)
+    cands = rejected_candidates(same.calls, lens, runs["same_weights"], uids)
+    del same, same_eng
+    dcfg = dataclasses.replace(cfg, num_layers=SPEC_DRAFT_LAYERS)
+    small = CausalLM(dcfg, init_params(
+        dcfg, torch.Generator(device=DEVICE).manual_seed(SEED + 1),
+        torch.bfloat16, DEVICE))
+    small_eng = InferenceEngineV2(small, RaggedInferenceEngineConfig(
+        num_blocks=draft_blocks), device=DEVICE)
+    run("draft_2_layers", DraftModelDrafter(small_eng))
+    del small_eng, small
+    _free(torch)
+    blocks0 = [sm.get_sequence(u).cur_allocated_blocks for u in uids]
+    run("always_wrong", WrongDrafter(cfg.vocab_size))
+    t = timing["always_wrong"]
+    check(t["windows"] == steps and t["accepted_draft"] == 0,
+          f"always-wrong drafter: {t['windows']} windows, "
+          f"{t['accepted_draft']} accepted")
+    check(t["seen"] == [n + steps for n in lens],
+          f"always-wrong drafter: KV lengths {t['seen']}, not the prompts "
+          f"plus {steps}")
+    want = [max(b, -(-(n + steps + SPEC_K) // bs))
+            for b, n in zip(blocks0, lens)]
+    check(t["blocks"] == want, f"always-wrong drafter: blocks {t['blocks']}"
+                               f", not {want}: a rollback freed a block")
+    run("skipped_rollback", WrongDrafter(cfg.vocab_size), rollback=False)
+
+    # a decode_window nan verify window, and its clean repeat
+    greedy_log = []
+    step_for = eng._verify_step_for
+
+    def recording(key):
+        step = step_for(key)
+
+        def rec(*args):
+            greedy, bad = step(*args)
+            greedy_log.append(greedy.clone())
+            return greedy, bad
+        return rec
+
+    eng._verify_step_for = recording
+    pair, pseeds = uids[:2], seeds[:2]
+    drafts = [runs["vanilla"][u][1:1 + SPEC_K] for u in pair]
+    mate = slice(1 + len(drafts[0]), 2 + len(drafts[0]) + len(drafts[1]))
+    os.environ[injection.ENV_VAR] = "site=decode_window,kind=nan,times=1"
+    injection.clear()
+    try:
+        bad = eng.verify_decode(pair, pseeds, drafts)
+    finally:
+        os.environ.pop(injection.ENV_VAR, None)
+        injection.clear()
+    bad_greedy = greedy_log[-1][mate]
+    check(bad.poisoned and bad.nonfinite_uids == [pair[0]],
+          f"nan verify window flagged {bad.nonfinite_uids}, not "
+          f"[{pair[0]}]")
+    check(sm.get_sequence(pair[0]).seen_tokens == lens[0],
+          "the poisoned uid's KV length was not rolled back")
+    eng.rollback_kv(pair[1], lens[1])
+    clean = eng.verify_decode(pair, pseeds, drafts)
+    del eng._verify_step_for
+    mate_same = clean.accepted[1] == bad.accepted[1] and \
+        torch.equal(greedy_log[-1][mate], bad_greedy)
+    check(mate_same, "the poisoned window's batchmate differs from the "
+                     "clean repeat's")
+    log(f"speculative nan window: flagged {bad.nonfinite_uids}, the "
+        f"batchmate's chain {bad.accepted[1]} and greedy vector equal the "
+        f"clean repeat's (which flagged {clean.nonfinite_uids}: the "
+        f"poisoned pages stay NaN)")
+    eng.flush(uids)
+    check(sm.free_blocks == free0, f"free blocks {sm.free_blocks} after "
+                                   f"flush, {free0} before the phase")
+    del eng
+    _free(torch)
+
+    margin, content = spec_content_check(
+        torch, model, prompts,
+        {name: runs[name] for name in ("vanilla", "ngram", "same_weights",
+                                       "draft_2_layers", "always_wrong",
+                                       "skipped_rollback")},
+        candidates={"same_weights": cands}, fault="skipped_rollback")
+    out = {"timing": timing, "content": content, "margin": margin,
+           "nan_window": {"flagged": bad.nonfinite_uids,
+                          "batchmate_equal": mate_same},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"speculative: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
+def family_model(torch, arch, layers=None):
+    """A universal-family model at the published widths of ``arch``
+    (depth cut to ``layers`` if given), random bf16 weights from the
+    seeded generator, on the card."""
+    from deepspeed_tpu_torch.models.families import (ArchConfig,
+                                                     UniversalCausalLM,
+                                                     init_universal_params)
+
+    cfg = ArchConfig(**dict(arch, **({} if layers is None
+                                     else {"num_layers": layers})))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return UniversalCausalLM(cfg, init_universal_params(
+        cfg, gen, torch.bfloat16, DEVICE))
+
+
+def family_serving(torch, ops, name, arch, layers=None, spec=False):
+    """One family through the serving path: ``generate`` on 8 prompts of
+    128-1024 tokens, ``FAMILY_NEW`` new tokens each (one untimed run, then
+    ``REPEATS`` timed: K6's and K7's counters must rise in each), paged vs
+    gather on one batch, and with ``spec`` ``speculative_decode`` with
+    ``NGramDrafter`` under the content check. No planted fault here:
+    random-weight Bloom's greedy stream repeats (the n-gram drafter's
+    drafts are all accepted) and does not move when rejected rows stay
+    in the context, so a skipped rollback reads every gap 0; the
+    margin's cap is this check's ceiling."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.speculative import NGramDrafter
+
+    t_phase = time.perf_counter()
+    model = family_model(torch, arch, layers)
+    cfg = model.config
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    prompt_lens = [128, 256, 384, 512, 640, 768, 896, 1024]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in prompt_lens]
+    engine_kw = dict(max_seqs=FAMILY_MAX_SEQS)
+    engine = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        **engine_kw), device=DEVICE)
+    pool_bytes = engine.kv.mem_bytes()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    log(f"{name}: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads (hd "
+        f"{cfg.head_dim}), vocab {cfg.vocab_size}, pos {cfg.pos}; "
+        f"{model.num_params() / 1e9:.3f} B params: weights "
+        f"{weight_bytes / 1e9:.2f} GB + KV pool {pool_bytes / 1e9:.2f} GB "
+        f"({engine.kv.config.num_blocks} blocks of "
+        f"{engine.config.block_size}, max_seqs {FAMILY_MAX_SEQS}) of "
+        f"{card_bytes / 1e9:.1f} GB; {CARD}")
+    check(weight_bytes + pool_bytes < 0.6 * card_bytes,
+          f"{name}: weights and pool fill the card")
+    log(f"{name} warm-up (untimed):")
+    first_out, launches, first = _run_generate(
+        torch, ops, engine, prompts, FAMILY_NEW, cfg.vocab_size)
+    runs = []
+    for i in range(REPEATS):
+        log(f"{name} timed run {i + 1}/{REPEATS}:")
+        _, n, r = _run_generate(torch, ops, engine, prompts, FAMILY_NEW,
+                                cfg.vocab_size)
+        check(n == launches, f"{name}: launch counts changed between runs")
+        runs.append(r)
+    del engine
+    _free(torch)
+    out = {k: {"median": _median([r[k] for r in runs]),
+               "min": min(r[k] for r in runs),
+               "max": max(r[k] for r in runs)}
+           for k in ("generate_s", "prefill_tok_per_s", "decode_tok_per_s")}
+    out.update(layers=cfg.num_layers, params=model.num_params(),
+               weight_bytes=weight_bytes, pool_bytes=pool_bytes,
+               launches_per_generate=launches, first_run=first)
+    log(f"{name} median of {REPEATS}: prefill "
+        f"{out['prefill_tok_per_s']['median']:.1f} tok/s "
+        f"[{out['prefill_tok_per_s']['min']:.1f}, "
+        f"{out['prefill_tok_per_s']['max']:.1f}], decode "
+        f"{out['decode_tok_per_s']['median']:.1f} tok/s "
+        f"[{out['decode_tok_per_s']['min']:.1f}, "
+        f"{out['decode_tok_per_s']['max']:.1f}]; {CARD}")
+    out["paged_vs_gather"] = paged_vs_gather(
+        torch, model, [prompts[1][:100], prompts[2][:120], prompts[3][:36]],
+        name, **engine_kw)
+    if spec:
+        uids = list(range(len(prompts)))
+        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            **engine_kw), device=DEVICE)
+        seeds = [int(t) for t in
+                 spec_prefill(eng, uids, prompts).argmax(-1)]
+        streams, rec = spec_run(torch, ops, eng, NGramDrafter(), uids,
+                                prompts, seeds, FAMILY_SPEC_NEW - 1)
+        eng.flush(uids)
+        del eng
+        _free(torch)
+        log(f"{name} speculative ngram: {rec['windows']} windows, "
+            f"acceptance {rec['acceptance_rate']:.3f}, K6 "
+            f"{rec['k6_launches_per_window']:.0f} a window, per-user "
+            f"{rec['per_user_tok_s']:.1f} tok/s; {CARD}")
+        margin, content = spec_content_check(
+            torch, model, prompts, {"ngram": streams}, **engine_kw)
+        out["speculative"] = {"timing": rec, "content": content,
+                              "margin": margin}
+    del model
+    _free(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
+def phase_families(torch, ops):
+    """Bloom-7b1 at its published widths and depth (K6/K7's ALiBi on a
+    model path) and Falcon-7b at its published widths, depth cut to
+    ``FALCON_LAYERS`` (K6/K7's G = 71), through ``family_serving``."""
+    return {"bloom_7b1": family_serving(torch, ops, "bloom_7b1", BLOOM_7B1,
+                                        spec=True),
+            "falcon_7b": family_serving(torch, ops, "falcon_7b", FALCON_7B,
+                                        layers=FALCON_LAYERS)}
+
+
+def paged_vs_gather(torch, model, batch, tag, **engine_kw):
+    """One ``put`` of ``batch`` with ``attn_impl="paged"`` and one with
+    ``"gather"``, fresh engines on the same weights: finite logits within
+    ``SERVING_LOGITS_REL`` (bf16 activations through every layer's
+    residual stream: the two attention paths round at different
+    places). → their relative l2 error."""
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+
+    vocab = model.config.vocab_size
+    uids = list(range(len(batch)))
+    logits = {}
+    for impl in ("paged", "gather"):
+        eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            attn_impl=impl, **engine_kw), device=DEVICE)
+        logits[impl] = eng.put(uids, batch)
+        check(tuple(logits[impl].shape) == (len(batch), vocab),
+              f"{tag} put({impl}) logits shape "
+              f"{tuple(logits[impl].shape)}")
+        check(bool(torch.isfinite(logits[impl]).all()),
+              f"{tag} put({impl}) logits not finite")
+        del eng
+        torch.cuda.empty_cache()
+    diff = logits["paged"] - logits["gather"]
+    rel = float(diff.norm() / logits["gather"].norm())
+    agree = float((logits["paged"].argmax(-1) ==
+                   logits["gather"].argmax(-1)).float().mean())
+    log(f"{tag} paged vs gather put: rel l2 err {rel:.3e} (tol "
+        f"{SERVING_LOGITS_REL}), max abs {float(diff.abs().max()):.3e}, "
+        f"argmax agree {agree:.2f}")
+    check(rel <= SERVING_LOGITS_REL,
+          f"{tag} paged vs gather logits differ: rel {rel}")
+    torch.cuda.synchronize()
+    return rel
+
+
 def quant_kernel_entries(rows, launches, errs):
     """The ``kernels`` JSON entries of K8a, K8b, K9a and K10a."""
     out = []
@@ -5066,8 +5698,10 @@ def main():
         handoff, handoff_rows = phase_handoff(torch, model, prompts,
                                               len(bf16_out[0]))
         prefix_serving = phase_prefix_serving(torch, ops, model)
+        speculative = phase_speculative(torch, ops, model, prompts)
         del model
         _free(torch)
+        families = phase_families(torch, ops)
         train_launches, training = phase_train_main_path(torch)
         fa_launches, fused_adam = phase_fused_adam_main_path(torch, training)
         others = phase_other_fused(torch, fused_adam["losses"][0])
@@ -5113,6 +5747,7 @@ def main():
                                      "weight_only": quant,
                                      "handoff": handoff}}))
     log(json.dumps({"prefix_serving": prefix_serving}))
+    log(json.dumps({"speculative": speculative, "families": families}))
     log(json.dumps({"data_parallel_world": world,
                     "matmul_planted_faults_over_limit": planted}))
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """DeepSpeed-TPU's PyTorch/CUDA port.
 
 A second package beside ``deepspeed_tpu`` (the JAX reference, which it
-never imports). It serves the Llama-family ``CausalLM`` through
-``InferenceEngineV2.generate`` and trains it through :func:`initialize` →
+never imports). It serves the Llama-family ``CausalLM`` (and the
+universal families' ``models.families.UniversalCausalLM``) through
+``InferenceEngineV2.generate``, greedily or speculatively
+(``inference.v2.speculative``), and trains it through :func:`initialize` →
 ``DeepSpeedEngine.train_batch`` on an NVIDIA H100, on one process or on a
 data-parallel ``torch.distributed`` world (``deepspeed_tpu_torch.comm``),
 with hand-written CUDA kernels under ``csrc/``. Entry points run on CUDA

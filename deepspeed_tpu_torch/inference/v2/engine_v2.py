@@ -20,6 +20,12 @@ cached prefix pages spill to host memory (``ragged/kv_swap.py``) and graft
 back. The ``decode_window`` and ``kv_alloc`` fault sites
 (``runtime/fault/injection.py``) poison a window or exhaust the pool.
 
+Speculative decoding (``speculative.py`` drives it):
+:meth:`InferenceEngineV2.verify_decode` scores each sequence's seed and
+draft tokens in one forward and accepts the longest prefix that matches
+the greedy argmax; :meth:`InferenceEngineV2.rollback_kv` truncates the
+rejected rows.
+
 The engine runs eagerly under ``torch.inference_mode()``; the page pool is
 updated in place. Batches keep the JAX package's bucketed budgets, so both
 engines pad every batch the same way.
@@ -35,10 +41,12 @@ import numpy as np
 import torch
 
 from ...accelerator import get_accelerator
+from ...models.families import ArchConfig
 from ...models.transformer import CausalLM, TransformerConfig
 from ...runtime.fault.injection import InjectedNaN, inject
 from ...utils.logging import logger
-from .model_runner import build_decode_loop, build_ragged_step, sample_tokens
+from .model_runner import (build_decode_loop, build_ragged_step,
+                           build_verify_step, sample_tokens)
 from .ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from .ragged.ragged_wrapper import RaggedBatchWrapper
 from .ragged.sequence_descriptor import DSStateManager
@@ -92,7 +100,10 @@ class RaggedInferenceEngineConfig:
 
 
 class InferenceEngineV2:
-    """Serves a :class:`CausalLM` from a paged KV cache.
+    """Serves a :class:`CausalLM` (a ``TransformerConfig`` model) or a
+    ``models.families.UniversalCausalLM`` (an ``ArchConfig`` model: gpt2,
+    gptj, opt, bloom, falcon, phi) from a paged KV cache; the pool takes
+    the model's KV heads and head dim.
 
     ``device=None`` means CUDA and raises when CUDA is absent; the CPU runs
     only when named (``device="cpu"``). The model's parameters are moved to
@@ -104,9 +115,10 @@ class InferenceEngineV2:
         self.device = get_accelerator().resolve_device(device)
         self.model = model
         self.cfg = model.config
-        if not isinstance(self.cfg, TransformerConfig):
+        if not isinstance(self.cfg, (TransformerConfig, ArchConfig)):
             raise NotImplementedError(
-                f"ragged serving needs a TransformerConfig model; got "
+                f"ragged serving needs a TransformerConfig (llama families) "
+                f"or ArchConfig (gpt2/gptj/opt/bloom/falcon/phi) model; got "
                 f"{type(self.cfg).__name__}")
         self.config = config or RaggedInferenceEngineConfig()
         c = self.config
@@ -453,6 +465,129 @@ class InferenceEngineV2:
                             allow_partial=allow_partial)
 
     # ------------------------------------------------------------------ #
+    # Speculative decoding: verify windows over the paged path
+    # ------------------------------------------------------------------ #
+    def _verify_step_for(self, key: Tuple[int, int]):
+        """The verify step of a bucket (``model_runner.build_verify_step``)."""
+        return build_verify_step(
+            self.cfg, max_q=key[0], num_blocks=self._num_blocks,
+            attn_impl=self.config.attn_impl, max_seqs=key[1],
+            max_blocks=self._wrapper_for(key).max_blocks)
+
+    def rollback_kv(self, uid: int, new_seen: int) -> None:
+        """Truncate ``uid``'s KV length to ``new_seen`` tokens: the
+        rejection path of a verify window, and the draft engine's resync.
+
+        Pages are never copied or freed: the rows past the new length are
+        dead and the sequence's next append overwrites them (positions come
+        from ``seen_tokens``). Blocks stay allocated, so a whole-lifetime
+        reservation survives any number of rollbacks; the over-hold is at
+        most one window. The device-resident decode state is dropped: it
+        was advanced past the rollback point."""
+        seq = self.state_manager.get_sequence(uid)
+        if seq is None:
+            raise ValueError(f"rollback of unknown uid {uid}")
+        if not 0 <= new_seen <= seq.seen_tokens:
+            raise ValueError(f"rollback can only truncate: {new_seen} not in "
+                             f"[0, {seq.seen_tokens}]")
+        seq.seen_tokens = int(new_seen)
+        seq.in_flight_tokens = 0
+        self._decode_state = None
+
+    @torch.inference_mode()
+    def verify_decode(self, uids: Sequence[int], seed_tokens: Sequence[int],
+                      drafts: Sequence[Sequence[int]]) -> "VerifyResult":
+        """One speculative verify window: score every sequence's ``[seed] +
+        draft`` row in ONE ragged multi-token forward (K6 on the paged
+        path), accept the longest draft prefix that matches the model's
+        greedy argmax, and roll the KV length back past the first
+        rejection.
+
+        Position 0's argmax is taken over the context vanilla decode would
+        see for the seed, and draft position j stays in the chain only when
+        every earlier candidate matched, so the emitted tokens are the
+        greedy stream, up to ``1 + len(draft)`` at a time; every window
+        emits at least one token.
+
+        The full ``1 + len(draft)`` rows are allocated and appended up
+        front (``kv_used_fraction`` counts speculative pages while the
+        window runs); rejection truncates the length (:meth:`rollback_kv`).
+        The window shares the ``decode_window`` fault site with fused
+        decode windows: a poisoned row emits nothing and rolls back to its
+        length before the window, its batchmates are untouched."""
+        n = len(uids)
+        if not n == len(seed_tokens) == len(drafts):
+            raise ValueError("uids, seed_tokens and drafts differ in length")
+        lens = [1 + len(d) for d in drafts]
+        if sum(lens) > self.config.max_tokens:
+            # before any allocator or descriptor state changes: the pack
+            # would raise halfway through the inserts otherwise
+            raise RuntimeError(
+                f"verify window needs {sum(lens)} flat tokens ({n} seqs + "
+                f"drafts) > max_tokens {self.config.max_tokens}; cap the "
+                f"draft lengths")
+        verdict = self.can_schedule(uids, lens)
+        if verdict != SchedulingResult.Success:
+            raise RuntimeError(f"cannot schedule verify window: {verdict}")
+        self._decode_state = None      # host forward invalidates device meta
+        bucket = self.bucket_for(sum(lens), n)
+        wrapper = self._wrapper_for(bucket)
+        wrapper.clear()
+        ctx_before = []
+        for uid, seed, draft in zip(uids, seed_tokens, drafts):
+            seq = self.state_manager.get_or_create_sequence(uid)
+            ctx_before.append(seq.seen_tokens)
+            if not self.state_manager.maybe_allocate_kv(seq, 1 + len(draft)):
+                raise RuntimeError("KV allocation failed after can_schedule")
+            wrapper.insert_sequence(seq, [int(seed)] + [int(t) for t in draft])
+        batch = wrapper.finalize()
+        meta = self._upload(batch.pack())
+        step = self._verify_step_for(bucket)
+
+        t0 = time.perf_counter()
+        self.decode_windows_dispatched += 1
+        poisoned = False
+        try:
+            inject("decode_window", step=self.decode_windows_dispatched)
+        except InjectedNaN:
+            poisoned = True
+            self._poison_kv(uids[0])
+        greedy_dev, bad_dev = step(self.model, self.kv.pages, meta)
+        greedy = greedy_dev.cpu().numpy()
+        bad = bad_dev.cpu().numpy()
+        duration_s = time.perf_counter() - t0
+
+        accepted: List[List[int]] = []
+        nonfinite_uids: List[int] = []
+        drafted = accepted_draft = 0
+        for row, (uid, draft) in enumerate(zip(uids, drafts)):
+            self.state_manager.get_sequence(uid).post_forward()
+            if bad[row]:
+                # no speculative KV is left behind; the caller flushes it
+                self.rollback_kv(uid, ctx_before[row])
+                nonfinite_uids.append(uid)
+                accepted.append([])
+                continue
+            off = int(batch.q_offset[row])
+            g = [int(t) for t in greedy[off:off + 1 + len(draft)]]
+            a = 0
+            while a < len(draft) and int(draft[a]) == g[a]:
+                a += 1
+            drafted += len(draft)
+            accepted_draft += a
+            accepted.append(g[:a + 1])
+            # the seed and the a matched drafts are context; later rows
+            # are dead until overwritten
+            self.rollback_kv(uid, ctx_before[row] + 1 + a)
+        self._touch_heat(uids)
+        return VerifyResult(
+            uids=list(uids), accepted=accepted,
+            nonfinite_uids=nonfinite_uids, drafted=drafted,
+            accepted_draft=accepted_draft,
+            emitted=sum(len(t) for t in accepted), duration_s=duration_s,
+            poisoned=poisoned)
+
+    # ------------------------------------------------------------------ #
     # Fused multi-step decode (device-resident loop)
     # ------------------------------------------------------------------ #
     def decode_batch(self, uids: Sequence[int],
@@ -671,6 +806,31 @@ class InferenceEngineV2:
                   for name, p in self.model.named_parameters()}
         NumpyCheckpointEngine(path).save(
             {"leaves": leaves, "meta": {}, "step": 0}, "model")
+
+
+@dataclasses.dataclass
+class VerifyResult:
+    """Outcome of one verify window (:meth:`InferenceEngineV2.
+    verify_decode`).
+
+    ``accepted[i]`` is the greedy chain emitted for ``uids[i]``: ``1 +
+    a_i`` tokens, ``a_i`` the matched draft prefix; its LAST token is the
+    next seed (not yet in the KV cache, as after ``put`` and decode). A
+    uid in ``nonfinite_uids`` emitted nothing and its KV length is back to
+    where it was before the window."""
+
+    uids: List[int]
+    accepted: List[List[int]]
+    nonfinite_uids: List[int]
+    drafted: int                 # draft tokens scored
+    accepted_draft: int          # of those, matched the greedy chain
+    emitted: int                 # tokens produced (>= len(uids) - poisoned)
+    duration_s: float            # verify forward wall time
+    poisoned: bool               # the decode_window nan injection fired
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted_draft / self.drafted if self.drafted else 0.0
 
 
 class DecodeWindow:

@@ -5,25 +5,34 @@ inference/v2/model_implementations/inference_transformer_base.py:48).
 One forward serves any mix of prefill and decode tokens in the flat-token
 layout of ``ragged/ragged_wrapper.py``. Per layer over the flat token axis:
 
-  rmsnorm → q/k/v projections → RoPE (per-token absolute positions)
-  → paged KV append (in place) → paged attention → o proj → SwiGLU MLP,
+  norm → q/k/v projections → positions (RoPE per token, or ALiBi in the
+  attention) → paged KV append (in place) → paged attention → o proj → MLP,
 
 and logits only for each sequence's last token. The page pool is ONE
 tensor ``[L*num_blocks + 1, page_size, 2*KV, hd]``; layer l's page table is
 ``block_table + l*num_blocks`` and the final page is the trash page padded
 tokens write into.
 
+One forward, :func:`ragged_forward`, serves both config types: a
+Llama-family ``TransformerConfig`` runs as the ``ArchConfig`` it is
+(``families.arch_of``: RMSNorm, full RoPE, SwiGLU, no o_proj or MLP
+biases), beside the universal families' own ``ArchConfig``
+(``models/families.py``). With ``verify_mode`` it returns the logits of
+every flat position, for the speculative verify windows (K6 on short
+multi-token rows).
+
 Attention impls (``RaggedInferenceEngineConfig.attn_impl``):
   "paged"  — the hand-written CUDA kernels (``kernels/ragged_ops.py``):
-             ``ragged_paged_attention`` for prefill/mixed batches,
-             ``decode_paged_attention`` for fused decode windows;
+             ``ragged_paged_attention`` (K6) for prefill/mixed batches,
+             ``decode_paged_attention`` (K7) for fused decode windows;
   "gather" — the dense page-gather oracle :func:`_attend_gather`, chosen
              explicitly, never by default.
 
 Where the JAX package compiles a step and donates the pool, the port runs
 eagerly and writes the pool in place. The fused decode window
 (:func:`build_decode_loop`) is a Python loop whose sampling and metadata
-advance stay on the device: nothing in it waits for the host.
+advance stay on the device: nothing in it waits for the host; the verify
+step (:func:`build_verify_step`) hands the host two small vectors.
 """
 from __future__ import annotations
 
@@ -34,8 +43,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ...models.transformer import CausalLM, TransformerConfig, rms_norm
+from ...models.families import arch_of, linear, mlp, norm, rope_partial
+from ...models.families import rope_at as _rope_at
 from .kernels.ragged_ops import (
+    alibi_bias,
+    alibi_slopes,
+    biased_scores,
     decode_paged_attention,
     paged_kv_append,
     ragged_paged_attention,
@@ -45,22 +58,15 @@ from .ragged.ragged_wrapper import pack_layout
 _NEG_INF = -1e30
 
 
-def _rope_at(pos: torch.Tensor, rotary_dim: int, theta: float):
-    """cos/sin tables gathered at arbitrary positions [T] → [T, rd/2]."""
-    inv = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
-                                        device=pos.device) / rotary_dim))
-    freqs = pos.float()[:, None] * inv[None, :]
-    return torch.cos(freqs), torch.sin(freqs)
-
-
-def _apply_rope_flat(x: torch.Tensor, cos: torch.Tensor,
-                     sin: torch.Tensor) -> torch.Tensor:
-    """x [T, H, hd] with per-token tables [T, hd/2]: the half-split (neox)
-    rotation of the llama family."""
-    c = cos[:, None, :].to(x.dtype)
-    s = sin[:, None, :].to(x.dtype)
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+def _apply_rope_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     rotary_dim: Optional[int] = None,
+                     style: str = "neox") -> torch.Tensor:
+    """x [T, H, hd] with per-token tables [T, rd/2]: the half-split (neox)
+    rotation of the llama family, or partial (phi) and interleaved-pair
+    (gptj) rotary, as ``families.rope_partial`` on the flat token axis."""
+    return rope_partial(x, cos, sin,
+                        x.shape[-1] if rotary_dim is None else rotary_dim,
+                        style)
 
 
 def _unpack_batch(packed: torch.Tensor, max_q: int, max_seqs: int,
@@ -75,14 +81,17 @@ def _unpack_batch(packed: torch.Tensor, max_q: int, max_seqs: int,
     return batch
 
 
-def _attend_gather(q_seq, kv_pages, page_table, q_len, ctx_len, scale):
+def _attend_gather(q_seq, kv_pages, page_table, q_len, ctx_len, scale,
+                   alibi=None, alibi_scaled=False):
     """Dense page-gather reference attention (the numerics oracle).
 
     Gathers the full padded context per sequence straight from the pool
     (``page_table`` rows are ABSOLUTE page ids) and runs masked softmax
     attention in float32. V is zeroed at out-of-context columns before the
     product (select before multiply), so unused table slots aliasing a
-    poisoned page cannot leak NaN.
+    poisoned page cannot leak NaN. ``alibi`` (a float32 ``[H]`` slopes
+    tensor) adds the kernels' position bias (``ragged_ops.alibi_bias``;
+    ``alibi_scaled``: Falcon's).
 
     q_seq [S, mq, H, hd]; kv_pages [NP, ps, 2KV, hd]; page_table [S, NB]
     → [S, mq, H, hd] float32.
@@ -109,20 +118,26 @@ def _attend_gather(q_seq, kv_pages, page_table, q_len, ctx_len, scale):
     q_mask = rows[None, :] < q_len[:, None]
     attn_mask = (ctx_pos[None, None, :] <= q_pos[:, :, None]) & \
         (ctx_pos[None, None, :] < ctx_len[:, None, None]) & q_mask[:, :, None]
-    scores = torch.einsum("sqhd,schd->shqc", q_seq.float(),
-                          k_ctx.float()) * scale
+    raw = torch.einsum("sqhd,schd->shqc", q_seq.float(), k_ctx.float())
+    if alibi is None:
+        scores = raw * scale
+    else:
+        bias = alibi_bias(alibi, ctx_pos, scale, alibi_scaled)  # [H, C]
+        scores = biased_scores(raw, scale, bias[None, :, None, :])
     scores = torch.where(attn_mask[:, None, :, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("shqc,schd->sqhd", probs, v_ctx.float())
 
 
 def _ragged_attend(q, kv_pages, batch, *, attn_impl: str, layer: int,
-                   num_blocks: int, max_q: int, scale: float,
+                   num_blocks: int, max_q: int, scale: float, alibi=None,
+                   alibi_scaled: bool = False,
                    decode_mode: bool = False) -> torch.Tensor:
-    """Attention dispatch: the ragged paged kernel, the one-token-per-
-    sequence decode kernel (``decode_mode``: sequence i's single query token
-    at flat index i, rows past n_seqs padded with ctx_len 0), or the dense
-    page-gather oracle. q [T, H, hd] → [T, H*hd]."""
+    """Attention dispatch: the ragged paged kernel (prefill, mixed and
+    verify batches), the one-token-per-sequence decode kernel
+    (``decode_mode``: sequence i's single query token at flat index i,
+    rows past n_seqs padded with ctx_len 0), or the dense page-gather
+    oracle. ``alibi``: H slopes or None. q [T, H, hd] → [T, H*hd]."""
     T, H, hd = q.shape
     KV = kv_pages.shape[2] // 2
     q_len, ctx_len = batch["q_len"], batch["ctx_len"]
@@ -130,21 +145,26 @@ def _ragged_attend(q, kv_pages, batch, *, attn_impl: str, layer: int,
     if attn_impl == "paged" and decode_mode:
         SW = min(q_len.shape[0], T)
         out = decode_paged_attention(q[:SW], kv_pages, ctx_len[:SW],
-                                     pt_l[:SW], num_kv_heads=KV, scale=scale)
+                                     pt_l[:SW], num_kv_heads=KV, scale=scale,
+                                     alibi=alibi, alibi_scaled=alibi_scaled)
         if T > SW:
             out = F.pad(out, (0, 0, 0, 0, 0, T - SW))
         return out.reshape(T, H * hd)
     if attn_impl == "paged":
         out = ragged_paged_attention(q, kv_pages, ctx_len, pt_l,
                                      batch["cu_q_lens"], num_kv_heads=KV,
-                                     scale=scale)
+                                     scale=scale, alibi=alibi,
+                                     alibi_scaled=alibi_scaled)
         return out.reshape(T, H * hd)
     q_offset = batch["q_offset"].long()
     rows = torch.arange(max_q, device=q.device)
     q_idx = (q_offset[:, None] + rows[None, :]).clamp(0, T - 1)
     q_seq = q.reshape(T, -1)[q_idx.reshape(-1)].reshape(-1, max_q, H, hd)
-    o_seq = _attend_gather(q_seq, kv_pages, pt_l, q_len, ctx_len,
-                           scale).to(q.dtype)
+    slopes = None if alibi is None else torch.tensor(
+        alibi, dtype=torch.float32, device=q.device)
+    o_seq = _attend_gather(q_seq, kv_pages, pt_l, q_len, ctx_len, scale,
+                           alibi=slopes,
+                           alibi_scaled=alibi_scaled).to(q.dtype)
     seq_of = batch["seq_of_token"].long()
     within = (torch.arange(T, device=q.device) - q_offset[seq_of]).clamp(
         0, max_q - 1)
@@ -158,70 +178,137 @@ def _layer_pages(page_of_token, layer: int, num_blocks: int, trash_page: int):
                        page_of_token + layer * num_blocks, trash_page)
 
 
-def ragged_forward(model: CausalLM, kv_pages: torch.Tensor,
-                   packed: torch.Tensor, cfg: TransformerConfig, max_q: int,
-                   num_blocks: int, attn_impl: str = "paged",
-                   max_seqs: int = 0, max_blocks: int = 0,
-                   decode_mode: bool = False) -> torch.Tensor:
-    """→ last-token logits [max_seqs, vocab] float32. ``kv_pages`` is
-    updated in place with this batch's K/V rows."""
+def _layer_norms(lw):
+    """(pre-attention, pre-MLP) norm nodes of the stacked layers: the
+    llama tree's ``attn_norm``/``mlp_norm``, the families' ``ln1``/``ln2``
+    (no ``ln2`` where a parallel block shares one LayerNorm)."""
+    if hasattr(lw, "attn_norm"):
+        return lw.attn_norm, lw.mlp_norm
+    return lw.ln1, getattr(lw, "ln2", None)
+
+
+def ragged_forward(model, kv_pages: torch.Tensor, packed: torch.Tensor,
+                   cfg, max_q: int, num_blocks: int,
+                   attn_impl: str = "paged", max_seqs: int = 0,
+                   max_blocks: int = 0, decode_mode: bool = False,
+                   verify_mode: bool = False) -> torch.Tensor:
+    """A ``CausalLM`` (``cfg`` a ``TransformerConfig``) or a
+    ``UniversalCausalLM`` (``cfg`` an ``ArchConfig``: learned positions
+    with OPT's offset, ALiBi in the kernels, Bloom's and Falcon's scaled
+    form, partial and interleaved rotary, parallel attention, dual
+    LayerNorms, LayerNorm with bias, gelu (tanh and erf), relu and SwiGLU
+    MLPs, the lm-head bias) over one flat-token batch.
+
+    → last-token logits [max_seqs, vocab] float32, or with ``verify_mode``
+    the logits of every flat position [max_q, vocab] (the verify pass
+    needs the argmax at each window position). ``kv_pages`` is updated in
+    place with this batch's K/V rows."""
+    cfg = arch_of(cfg)
     batch = _unpack_batch(packed, max_q, max_seqs, max_blocks)
     tokens = batch["tokens"]
     page_of = batch["page_of_token"]
     off_of = batch["off_of_token"]
+    pos = batch["pos_of_token"]
     T = tokens.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     trash_page = kv_pages.shape[0] - 1
     lw = model.layers
+    ln1, ln2 = _layer_norms(lw)
 
     x = model.embed.embedding[tokens.long()]                  # [T, D]
-    cos, sin = _rope_at(batch["pos_of_token"], hd, cfg.rope_theta)
-
-    def proj(h, name, layer, n):
-        p = getattr(lw, name)
-        y = h @ p.kernel[layer]
-        if cfg.attn_bias:
-            y = y + p.bias[layer]
-        return y.view(T, n, hd)
+    if cfg.pos == "learned":
+        x = x + model.pos_embed.embedding[pos.long() + cfg.pos_offset]
+    if cfg.embed_layernorm:
+        x = norm(x, model.embed_ln, cfg)
+    cos = sin = alibi = None
+    if cfg.pos == "rope":
+        cos, sin = _rope_at(pos, cfg.rotary_dim, cfg.rope_theta)
+    if cfg.pos == "alibi":
+        alibi = tuple(alibi_slopes(H).tolist())
 
     for layer in range(cfg.num_layers):
-        h = rms_norm(x, lw.attn_norm.scale[layer], cfg.norm_eps)
-        q = _apply_rope_flat(proj(h, "q_proj", layer, H), cos, sin)
-        k = _apply_rope_flat(proj(h, "k_proj", layer, KV), cos, sin)
-        v = proj(h, "v_proj", layer, KV)
+        h_attn = norm(x, ln1, cfg, layer)
+        q = linear(h_attn, lw.q_proj, layer).view(T, H, hd)
+        k = linear(h_attn, lw.k_proj, layer).view(T, KV, hd)
+        v = linear(h_attn, lw.v_proj, layer).view(T, KV, hd)
+        if cfg.pos == "rope":
+            q = _apply_rope_flat(q, cos, sin, cfg.rotary_dim, cfg.rope_style)
+            k = _apply_rope_flat(k, cos, sin, cfg.rotary_dim, cfg.rope_style)
         paged_kv_append(kv_pages, k, v,
                         _layer_pages(page_of, layer, num_blocks, trash_page),
                         off_of)
         o = _ragged_attend(q, kv_pages, batch, attn_impl=attn_impl,
                            layer=layer, num_blocks=num_blocks, max_q=max_q,
-                           scale=scale, decode_mode=decode_mode)
-        x = x + o.to(x.dtype) @ lw.o_proj.kernel[layer]
-        h = rms_norm(x, lw.mlp_norm.scale[layer], cfg.norm_eps)
-        gate = F.silu(h @ lw.gate_proj.kernel[layer])
-        up = h @ lw.up_proj.kernel[layer]
-        x = x + (gate * up) @ lw.down_proj.kernel[layer]
+                           scale=scale, alibi=alibi,
+                           alibi_scaled=cfg.alibi_scaled,
+                           decode_mode=decode_mode)
+        attn_out = linear(o.to(x.dtype), lw.o_proj, layer)
+        if cfg.parallel_attn:
+            h_mlp = norm(x, ln2, cfg, layer) if cfg.dual_ln else h_attn
+            x = x + attn_out + mlp(h_mlp, lw, layer, cfg)
+        else:
+            x = x + attn_out
+            x = x + mlp(norm(x, ln2, cfg, layer), lw, layer, cfg)
 
-    x = rms_norm(x, model.norm_f.scale, cfg.norm_eps)
-    last = x[batch["logit_idx"].long()]                       # [S, D]
+    x = norm(x, model.norm_f, cfg)
+    last = x if verify_mode else x[batch["logit_idx"].long()]
     if cfg.tie_embeddings:
         logits = last @ model.embed.embedding.T
     else:
-        logits = last @ model.lm_head.kernel
+        logits = linear(last, model.lm_head)
     return logits.float()
 
 
-def build_ragged_step(cfg: TransformerConfig, max_q: int, num_blocks: int,
+def build_ragged_step(cfg, max_q: int, num_blocks: int,
                       attn_impl: str = "paged", max_seqs: int = 0,
-                      max_blocks: int = 0, decode_mode: bool = False):
+                      max_blocks: int = 0, decode_mode: bool = False,
+                      verify_mode: bool = False):
     """``(model, kv_pages, packed) → logits`` for one bucket's budgets."""
     if attn_impl not in ("paged", "gather"):
         raise ValueError(
             f"attn_impl must be 'paged' or 'gather', got {attn_impl!r}")
-    return partial(ragged_forward, cfg=cfg, max_q=max_q,
-                   num_blocks=num_blocks, attn_impl=attn_impl,
-                   max_seqs=max_seqs, max_blocks=max_blocks,
-                   decode_mode=decode_mode)
+    return partial(ragged_forward, cfg=arch_of(cfg), max_q=max_q, num_blocks=num_blocks,
+                   attn_impl=attn_impl, max_seqs=max_seqs,
+                   max_blocks=max_blocks, decode_mode=decode_mode,
+                   verify_mode=verify_mode)
+
+
+def build_verify_step(cfg, *, max_q: int, num_blocks: int,
+                      attn_impl: str = "paged", max_seqs: int = 0,
+                      max_blocks: int = 0):
+    """Speculative verify pass: score a ragged window of (seed + draft)
+    tokens per sequence and return the greedy argmax at EVERY flat
+    position with per-sequence non-finite flags.
+
+    Only those two small vectors leave the device, never ``[T, vocab]``
+    logits. The flags count real tokens only (``page_of_token <
+    num_blocks``): padded rows alias the last sequence in
+    ``seq_of_token`` and must not blame it.
+
+    Returns ``step(model, kv_pages, packed) → (greedy [max_q] int32,
+    nonfinite [max_seqs] bool)``, both on the device; ``kv_pages`` is
+    updated in place."""
+    step_fn = build_ragged_step(cfg, max_q=max_q, num_blocks=num_blocks,
+                                attn_impl=attn_impl, max_seqs=max_seqs,
+                                max_blocks=max_blocks, verify_mode=True)
+    layout = pack_layout(max_q, max_seqs, max_blocks)
+
+    def field(meta, name):
+        off, shape = layout[name]
+        return meta[off:off + math.prod(shape)]
+
+    def step(model, kv_pages, meta):
+        logits = step_fn(model, kv_pages, meta)               # [T, V]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        valid = field(meta, "page_of_token") < num_blocks
+        bad_tok = ~torch.isfinite(logits).all(dim=-1) & valid
+        bad = torch.zeros(max_seqs, dtype=torch.int32, device=meta.device)
+        bad.index_add_(0, field(meta, "seq_of_token").long(),
+                       bad_tok.to(torch.int32))
+        return greedy, bad > 0
+
+    return step
 
 
 def _categorical(logits: torch.Tensor,
@@ -248,7 +335,7 @@ def sample_tokens(logits: torch.Tensor,
     return _categorical(scaled, generator).to(torch.int32)
 
 
-def build_decode_loop(cfg: TransformerConfig, *, max_q: int, max_seqs: int,
+def build_decode_loop(cfg, *, max_q: int, max_seqs: int,
                       max_blocks: int, block_size: int, num_blocks: int,
                       attn_impl: str, steps: int, temperature: float = 0.0,
                       top_k: int = 0):

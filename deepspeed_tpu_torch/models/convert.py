@@ -1,9 +1,13 @@
-"""JAX parameter tree ⇄ ``CausalLM`` state, by name.
+"""JAX parameter tree ⇄ ``CausalLM`` or ``UniversalCausalLM`` state, by
+name.
 
 The caller turns the JAX pytree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX. A
 nested dict ``{"layers": {"q_proj": {"kernel": ...}}}`` maps to the dotted
 state key ``layers.q_proj.kernel``; the arrays keep their layout and dtype.
+The config picks the expected tree: a ``TransformerConfig`` the JAX
+``init_params`` one, an ``ArchConfig`` the JAX ``init_universal_params``
+one.
 :func:`qparams_from_numpy` does the same for a tree that the JAX
 ``quantize_params`` returned, keeping its quantized nodes.
 """
@@ -14,7 +18,10 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from .transformer import CausalLM, TransformerConfig, param_shapes
+from torch import nn
+
+from .families import ArchConfig, universal_param_shapes
+from .transformer import TransformerConfig, param_shapes
 
 
 def _is_q(node: Any) -> bool:
@@ -32,13 +39,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def params_from_numpy(tree: Mapping, cfg: TransformerConfig
+def params_from_numpy(tree: Mapping,
+                      cfg: Union[TransformerConfig, ArchConfig]
                       ) -> Dict[str, torch.Tensor]:
-    """Nested numpy tree → ``CausalLM`` state dict (CPU tensors in the
-    arrays' dtype). Raises ``ValueError`` on a missing, extra or misshaped
-    leaf."""
+    """Nested numpy tree → ``CausalLM`` (or, for an ``ArchConfig``,
+    ``UniversalCausalLM``) state dict (CPU tensors in the arrays' dtype).
+    Raises ``ValueError`` on a missing, extra or misshaped leaf."""
     flat = _flatten(tree)
-    expected = param_shapes(cfg)
+    expected = universal_param_shapes(cfg) if isinstance(cfg, ArchConfig) \
+        else param_shapes(cfg)
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:
@@ -53,11 +62,12 @@ def params_from_numpy(tree: Mapping, cfg: TransformerConfig
     return state
 
 
-def params_to_numpy(state: Union[CausalLM, Mapping[str, torch.Tensor]]
+def params_to_numpy(state: Union[nn.Module, Mapping[str, torch.Tensor]]
                     ) -> Dict:
-    """``CausalLM`` (or its state dict) → nested numpy tree with the JAX
-    names: the inverse of :func:`params_from_numpy`."""
-    if isinstance(state, CausalLM):
+    """``CausalLM`` or ``UniversalCausalLM`` (or its state dict) → nested
+    numpy tree with the JAX names: the inverse of
+    :func:`params_from_numpy`."""
+    if isinstance(state, nn.Module):
         state = state.state_dict()
     tree: Dict = {}
     for name, t in state.items():

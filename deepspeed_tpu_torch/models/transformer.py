@@ -92,7 +92,8 @@ class TransformerConfig:
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """Dotted parameter name → shape, the JAX ``init_params`` tree."""
     if cfg.num_experts > 1:
-        raise NotImplementedError("MoE serving is not ported yet")
+        raise NotImplementedError(
+            "MoE serving is not ported yet (ROADMAP M7.9)")
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = {
@@ -123,20 +124,30 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random parameters with the JAX package's distributions (normal /
     sqrt(fan_in) kernels, 0.02-scaled embedding, unit norm scales, zero
     biases) → a ``CausalLM`` state dict. Numbers come from ``generator``,
-    which must live on ``device``; they differ from ``jax.random``'s.
+    which must live on ``device``; they differ from ``jax.random``'s."""
+    return init_from_shapes(param_shapes(cfg), generator, dtype, device)
+
+
+def init_from_shapes(shapes: Dict[str, Tuple[int, ...]],
+                     generator: torch.Generator,
+                     dtype: torch.dtype = torch.float32,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Random tensors for dotted parameter names, by name: ``*.scale``
+    ones, ``*.bias`` zeros, ``*.embedding`` normal x 0.02, every other
+    (a ``[..., in, out]`` kernel) normal / sqrt(in).
 
     Layer tensors are drawn one layer at a time in float32 and cast into
     the stacked tensor, so a full-width model needs one layer of float32
     scratch, not the whole model."""
     dev = get_accelerator().resolve_device(device)
     out = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in shapes.items():
         t = torch.empty(shape, dtype=dtype, device=dev)
         if name.endswith(".scale"):
             t.fill_(1.0)
         elif name.endswith(".bias"):
             t.zero_()
-        elif name == "embed.embedding":
+        elif name.endswith(".embedding"):
             t.copy_(torch.randn(shape, generator=generator, device=dev) * 0.02)
         else:
             fan_in = shape[-2]
@@ -318,6 +329,30 @@ class _Node(nn.Module):
     """A named level of the parameter tree (``layers``, ``q_proj``, ...)."""
 
 
+def register_params(module: nn.Module, expected: Dict[str, Tuple[int, ...]],
+                    state: Dict[str, torch.Tensor], trainable: bool) -> None:
+    """Register ``state``'s tensors (used as they are, no copy) on
+    ``module`` under their dotted names, one ``_Node`` per tree level.
+    Raises ``ValueError`` unless the names and shapes are ``expected``."""
+    missing = sorted(set(expected) - set(state))
+    extra = sorted(set(state) - set(expected))
+    if missing or extra:
+        raise ValueError(f"parameter names do not match the config: "
+                         f"missing {missing}, extra {extra}")
+    for name, shape in expected.items():
+        t = state[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+        *path, leaf = name.split(".")
+        node = module
+        for part in path:
+            if not hasattr(node, part):
+                node.add_module(part, _Node())
+            node = getattr(node, part)
+        node.register_parameter(leaf, nn.Parameter(t,
+                                                   requires_grad=trainable))
+
+
 class CausalLM(nn.Module):
     """Holds the stacked parameters under the JAX names; the serving
     forward is ``inference/v2/model_runner.ragged_forward``, the training
@@ -332,24 +367,7 @@ class CausalLM(nn.Module):
                  state: Dict[str, torch.Tensor], trainable: bool = False):
         super().__init__()
         self.config = cfg
-        expected = param_shapes(cfg)
-        missing = sorted(set(expected) - set(state))
-        extra = sorted(set(state) - set(expected))
-        if missing or extra:
-            raise ValueError(f"parameter names do not match the config: "
-                             f"missing {missing}, extra {extra}")
-        for name, shape in expected.items():
-            t = state[name]
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-            *path, leaf = name.split(".")
-            node = self
-            for part in path:
-                if not hasattr(node, part):
-                    node.add_module(part, _Node())
-                node = getattr(node, part)
-            node.register_parameter(leaf, nn.Parameter(
-                t, requires_grad=trainable))
+        register_params(self, param_shapes(cfg), state, trainable)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
