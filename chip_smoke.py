@@ -200,7 +200,30 @@ non-zero before the last line is printed:
      ``SERVING_LOGITS_REL``), and the run with ``rollback_kv`` skipped
      at least ``SPEC_FAULT_FACTOR`` x it;
      per-user tokens/s, acceptance and K6 launches a window printed;
- 19b. (after ``del model``) the universal families (``phase_families``):
+ 19b. (after phase 19a, on phase 4's model, prompts and ``generate``
+     streams) the serving lifecycle (``phase_serving_lifecycle``):
+     ``LifecycleScheduler(window_steps=8).run_until_idle()`` on the 8
+     prompts, 64 new tokens each (K6 and K7 must launch); KV-pressure
+     preemption on a 40-page pool, a priority-1 arrival preempting a
+     priority-0 decode, resumed by recompute and from a 512 MB host tier
+     (a swap-in), both within the margin of their re-scores, and a
+     planted fault (the resume re-prefills its last token twice)
+     reported against it (above 1 x; it read 4.42 x on the H100, short
+     of ``SPEC_FAULT_FACTOR``, which is not held); a ``decode_window``/``nan`` window
+     failing only its poisoned uid (health ``degraded``); then
+     ``ServingServer`` on 127.0.0.1: the 8 prompts from 8 concurrent
+     clients, an SSE stream, 429 with ``Retry-After`` from a filled
+     queue of 2, ``predicted_tok_per_s`` equal to the last clean decode
+     window's roofline, ``/v1/prefill`` on fp32 and int8 into
+     ``kv_import`` (K9a and K10a must launch; the int8 frame at most 0.3
+     x the fp32 one), a client dropping its stream (CANCELLED, pages
+     back), ``drain_and_stop`` with a 503 during the drain, and the
+     command-line server answering and exiting 0 on SIGTERM; every
+     stream of ``generate``, the scheduler and the server within
+     ``SPEC_MARGIN`` of its re-score; times to first token, time per
+     output token, decode tok/s against ``generate``'s, the HTTP cost
+     of a request and the decode roofline printed beside the card;
+ 19c. (after ``del model``) the universal families (``phase_families``):
      Bloom-7b1 at its published widths and depth (ALiBi) and Falcon-7b
      at its published widths, 8 of 32 layers (71 query heads on one KV
      head): ``generate`` (untimed, then ``REPEATS`` timed; K6 and K7 must
@@ -4313,7 +4336,7 @@ def rejected_candidates(calls, prompt_lens, streams, uids):
 
 
 def spec_content_check(torch, model, prompts, runs, candidates=None,
-                       fault=None, **engine_kw):
+                       fault=None, unheld=(), **engine_kw):
     """Speculation changes speed, never content: re-score every run's
     streams teacher-forced on a fresh paged engine (``stream_rows``) and
     hold each emitted token's gap (the re-score's largest logit less the
@@ -4324,7 +4347,8 @@ def spec_content_check(torch, model, prompts, runs, candidates=None,
     draft candidates ``(stream, position, token)``, held to the margin as
     well. ``fault``: a run with a planted fault, whose largest gap must
     read at least ``SPEC_FAULT_FACTOR`` x the margin, and is not held to
-    it. → (margin record, per-run results)."""
+    it. ``unheld``: runs whose gaps are printed and not held (a lossy path
+    by design). → (margin record, per-run results)."""
     from deepspeed_tpu_torch import (InferenceEngineV2,
                                      RaggedInferenceEngineConfig)
 
@@ -4392,7 +4416,9 @@ def spec_content_check(torch, model, prompts, runs, candidates=None,
             f"tokens equal to {names[0]}'s {res['agree_with_first_run']:.3f}"
             + (f"; {len(cands)} rejected candidates, max gap "
                f"{res['rejected_candidate_max_gap']:.4e}" if cands else ""))
-        if name == fault:
+        if name in unheld:
+            pass
+        elif name == fault:
             check(res["max_gap"] >= SPEC_FAULT_FACTOR * margin,
                   f"planted fault {name}: max gap {res['max_gap']:.4e} < "
                   f"{SPEC_FAULT_FACTOR} x SPEC_MARGIN {margin:.4e}")
@@ -4622,6 +4648,632 @@ def phase_speculative(torch, ops, model, prompts):
                           "batchmate_equal": mate_same},
            "phase_s": time.perf_counter() - t_phase}
     log(f"speculative: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# The serving lifecycle and its HTTP server (ROADMAP M7.7)
+# --------------------------------------------------------------------- #
+LIFE_NEW = 64                      # new tokens a request, as generate's
+LIFE_WINDOW = 8                    # the scheduler's decode window
+#: KV-pressure preemption: a pool of 40 pages of 64 (32 layers x 64
+#: tokens x 2 x 8 KV heads x 128 x 2 B = 8.4 MB a page, 335 MB in all).
+#: The priority-0 victim (the 1,024-token prompt, 64 new: 17 pages)
+#: decodes when a priority-1 arrival of LIFE_BIG tokens (64 new: 25
+#: pages, more than the 23 free) comes; the watermark lets 17 of 40 pages
+#: in use count as pressure
+LIFE_POOL = 40
+LIFE_BIG = 1500
+LIFE_WATERMARK = 0.4
+LIFE_HOST_MB = 512                 # the host tier of the swap-in run
+LIFE_RESCORE_TOKENS = 512          # the re-score engine's token budget:
+#                                    8 streams x 63 forced tokens
+LIFE_HTTP_REPEATS = 5              # timed single requests, each way
+
+
+def _life_counters(ops, qz, zero=False):
+    fns = {"ragged_paged_attention": ops.ragged_paged_attention,
+           "decode_paged_attention": ops.decode_paged_attention,
+           "quant_pack_wire": qz.quant_pack_wire,
+           "unpack_dequant_wire": qz.unpack_dequant_wire}
+    if zero:
+        for f in fns.values():
+            f.launches = 0
+    return {name: f.launches for name, f in fns.items()}
+
+
+def _http(port, path, body=None, timeout=600):
+    """One HTTP call to the local server → (status, headers, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _wait_for(cond, timeout=60.0):
+    """Poll ``cond`` until it holds or ``timeout`` passes → its last
+    value."""
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+def _gated_step(sched, hold):
+    """Replace ``sched.step`` (the server's driver calls it outside the
+    scheduler's lock) with one that waits, at most 60 s, while
+    ``hold()`` is true; ``del sched.step`` restores it."""
+    step = sched.step
+
+    def gated():
+        _wait_for(lambda: not hold(), timeout=60)
+        return step()
+    sched.step = gated
+
+
+class _DupResume:
+    """The planted fault of the preemption check: a resumed request
+    re-prefills ``prompt + produced`` (its last token twice in the KV)
+    instead of ``prompt + produced[:-1]``."""
+
+    @property
+    def resume_prompt(self):
+        if self._resume_seed is None:
+            return self.prompt
+        return self.prompt + self.produced
+
+
+def _life_preempt_run(torch, lc, model, victim_prompt, big_prompt,
+                      host_mb=0.0, fault=False, pressure=True):
+    """The preemption scenario on a LIFE_POOL-page engine → (the victim's
+    stream, counters, {uid: state})."""
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        num_blocks=LIFE_POOL, host_tier_mb=host_mb), device=DEVICE)
+    s = lc.LifecycleScheduler(eng, window_steps=LIFE_WINDOW,
+                              kv_high_watermark=LIFE_WATERMARK)
+    cls = lc.ServeRequest
+    if fault:
+        cls = type("DupResumeRequest", (_DupResume, lc.ServeRequest), {})
+    s.submit(cls(uid=0, prompt=victim_prompt, max_new_tokens=LIFE_NEW,
+                 priority=0))
+    if pressure:
+        while s.request(0).state != lc.RequestState.DECODE:
+            s.step()
+        s.step()                              # one decode window
+        s.submit(lc.ServeRequest(uid=1, prompt=big_prompt,
+                                 max_new_tokens=LIFE_NEW, priority=1))
+    s.run_until_idle()
+    torch.cuda.synchronize()
+    free_ok = eng.state_manager.free_blocks == LIFE_POOL
+    states = {u: s.request(u).state.value for u in s._reqs}
+    out = ([int(t) for t in s.request(0).produced], dict(s.counters),
+           states, free_ok)
+    del s, eng
+    _free(torch)
+    return out
+
+
+def phase_serving_lifecycle(torch, ops, model, prompts, gen_out, serving):
+    """The lifecycle scheduler and its HTTP server on the llama3-8B serving
+    model (bf16, page 64, the default engine unless named), the main
+    path's 8 prompts and ``generate``'s streams (``gen_out``):
+
+    1. ``LifecycleScheduler(window_steps=8).run_until_idle()`` on the 8
+       prompts, 64 new tokens each (K6 and K7 must launch);
+    2. KV-pressure preemption on a ``LIFE_POOL``-page engine: a
+       priority-1 arrival preempts the priority-0 decode of the 1,024-token
+       prompt, resumed once by recompute and once from a
+       ``LIFE_HOST_MB`` MB host tier (``serving/swap_in`` >= 1); both
+       resumed streams are held to the margin of their re-scores, and the
+       swap-in stream's equality with the unpreempted stream is printed;
+       a planted fault (the resume re-prefills ``prompt + produced``, its
+       last token twice) is reported in units of the margin and must read
+       above it (it read 4.42 x on the H100, short of
+       ``SPEC_FAULT_FACTOR``, so that factor is not held);
+    3. ``DSTPU_FAULT_INJECT`` ``decode_window``/``nan``: only the
+       poisoned uid ends FAILED/nan, its batchmates finish, ``/healthz``'s
+       state reads degraded;
+    then ``ServingServer(port=0, bind="127.0.0.1")`` over a default engine:
+    4. the 8 prompts posted at once from 8 client threads, blocking; one
+       SSE stream whose events concatenate to its ``n_total``; every
+       answer's ``ttft_s`` and ``tpot_s`` set;
+    5. shedding: with ``max_queue`` 2 filled (the driver held back), a
+       POST gets 429 with an integer ``Retry-After`` >= 1; once a clean
+       window has run, ``predicted_tok_per_s()`` equals
+       ``last_decode_roofline["decode_tok_per_s"]``;
+    6. ``/v1/prefill`` on fp32 and int8, then ``/v1/generate`` with
+       ``kv_import``, on the 128-token prompt (a body is capped at 64 MB,
+       ~190 tokens of base64 fp32 rows): the fp32 continuation within
+       the margin of the locally prefilled stream's re-score (the int8
+       one, whose KV is lossy by design, printed beside it), the int8
+       frame <= 0.3 x the fp32 frame's bytes, K9a and K10a launched,
+       ``serving/kv_import_tokens`` the shipped count;
+    7. a client that drops its SSE stream (the driver held back until the
+       cancellation arrives): CANCELLED, the pool's pages back;
+    8. ``drain_and_stop()`` finishes the request in flight, a POST during
+       the drain gets 503, the summary's counts match;
+    9. ``python -m deepspeed_tpu_torch.inference.v2.server --model tiny
+       --port 0 --bind 127.0.0.1`` answers a POST and exits 0 on SIGTERM.
+    Every emitted token of checks 1 and 4 (and ``gen_out``) lies within
+    ``SPEC_MARGIN`` of a teacher-forced re-score's argmax
+    (``spec_content_check``). → the phase's record (one JSON line)."""
+    import http.client
+    import signal
+    import threading
+
+    import numpy as np
+
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2 import lifecycle as lc
+    from deepspeed_tpu_torch.inference.v2.server import ServingServer
+    from deepspeed_tpu_torch.ops.quantizer import quantizer as qz
+    from deepspeed_tpu_torch.runtime.fault import injection
+
+    t_phase = time.perf_counter()
+    n = len(prompts)
+    uids = list(range(n))
+    counts0 = _life_counters(ops, qz)
+    out = {}
+
+    # 1. the scheduler in process against generate
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                            device=DEVICE)
+    sched = lc.LifecycleScheduler(eng, window_steps=LIFE_WINDOW)
+    windows, reports = [], []
+    enqueue, record = eng.decode_batch_async, eng._record_decode_roofline
+
+    def kept(*args, **kw):
+        w = enqueue(*args, **kw)
+        windows.append(w)
+        return w
+
+    def kept_report(w):
+        record(w)
+        reports.append(eng.last_decode_roofline)
+
+    eng.decode_batch_async = kept
+    eng._record_decode_roofline = kept_report
+    for u, p in zip(uids, prompts):
+        check(sched.submit(lc.ServeRequest(uid=u, prompt=p,
+                                           max_new_tokens=LIFE_NEW)).admitted,
+              f"uid {u} not admitted")
+    c1 = _life_counters(ops, qz)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k = {name: v - c1[name] for name, v in _life_counters(ops, qz).items()}
+    del eng.decode_batch_async, eng._record_decode_roofline
+    check(k["ragged_paged_attention"] > 0 and k["decode_paged_attention"] > 0,
+          f"the scheduler's run launched K6 {k['ragged_paged_attention']} "
+          f"and K7 {k['decode_paged_attention']} times")
+    sched_streams = [[int(t) for t in sched.request(u).produced]
+                     for u in uids]
+    check(all(sched.request(u).state == lc.RequestState.FINISHED
+              and len(s) == LIFE_NEW for u, s in zip(uids, sched_streams)),
+          "the scheduler's requests did not all finish with 64 tokens")
+    clean = [w for w in windows if not w.compiled]
+    win_tok = sum(w.n_seqs * w.steps for w in clean)
+    win_s = sum(w.duration_s for w in clean)
+    same = sum(a == b for s, g in zip(sched_streams, gen_out)
+               for a, b in zip(s, g)) / sum(len(g) for g in gen_out)
+    # the decode roofline of the widest clean windows (all 8 sequences,
+    # LIFE_WINDOW steps): the median of each number over them
+    wide = [r for r in reports if not r["compile_polluted"]
+            and r["n_seqs"] == n and r["steps"] == LIFE_WINDOW]
+    check(wide, f"no clean {n}-sequence {LIFE_WINDOW}-step window")
+    roof = {key: _median([r[key] for r in wide])
+            for key in ("decode_tok_per_s", "hbm_gbps", "hbm_pct_peak",
+                        "window_s")}
+    roof.update(windows=len(wide), n_seqs=n, steps=LIFE_WINDOW,
+                peak_hbm_gbps=wide[0]["peak_hbm_gbps"],
+                device_kind=wide[0]["device_kind"],
+                kernels_pct_of_window_bytes={
+                    name: row["pct_of_window_bytes"]
+                    for name, row in wide[0]["kernels"].items()})
+    out["scheduler"] = {
+        "wall_s": wall, "windows": len(windows), "clean_windows": len(clean),
+        "decode_tok_per_s": win_tok / win_s if win_s else None,
+        "generate_decode_tok_per_s": serving["decode_tok_per_s"]["median"],
+        "k6_launches": k["ragged_paged_attention"],
+        "k7_launches": k["decode_paged_attention"],
+        "tokens_equal_to_generate": same,
+        "decode_roofline": roof}
+    log(f"lifecycle scheduler: {n} requests x {LIFE_NEW} tokens in "
+        f"{wall:.3f} s, {len(windows)} windows ({len(clean)} clean), decode "
+        f"{out['scheduler']['decode_tok_per_s']:.1f} tok/s in the clean "
+        f"windows (generate's median "
+        f"{serving['decode_tok_per_s']['median']:.1f}); K6 "
+        f"{k['ragged_paged_attention']}, K7 {k['decode_paged_attention']} "
+        f"launches; tokens equal to generate's {same:.3f}; decode roofline "
+        f"of the {len(wide)} clean {n} x {LIFE_WINDOW} windows (median): "
+        f"{roof['decode_tok_per_s']:.1f} tok/s, HBM {roof['hbm_gbps']:.1f} "
+        f"GB/s ({roof['hbm_pct_peak']:.1f}% of {roof['peak_hbm_gbps']:.0f}"
+        f" GB/s); {CARD}")
+    del sched, eng, windows, clean, reports
+    _free(torch)
+
+    # 2. KV-pressure preemption: recompute, swap-in, the planted fault
+    rng = np.random.default_rng(SEED + 18)
+    victim = prompts[-1]
+    big = [int(t) for t in rng.integers(0, model.config.vocab_size,
+                                        LIFE_BIG)]
+    preempt = {}
+    for name, kw in (("uninterrupted", {"pressure": False}),
+                     ("recompute", {}), ("swap_in", {"host_mb": LIFE_HOST_MB}),
+                     ("dup_resume", {"fault": True})):
+        stream, counters, states, free_ok = _life_preempt_run(
+            torch, lc, model, victim, big, **kw)
+        preempt[name] = {"stream": stream, "counters": counters,
+                         "states": states, "free_ok": free_ok}
+        check(free_ok, f"preemption {name}: the pool's pages did not all "
+                       f"come back")
+        check(all(v == "finished" for v in states.values()),
+              f"preemption {name}: states {states}")
+        if name != "uninterrupted":
+            check(counters.get("serving/preempted", 0) >= 1,
+                  f"preemption {name}: no preemption ({counters})")
+    check(preempt["swap_in"]["counters"].get("serving/swap_in", 0) >= 1,
+          f"the host-tier run resumed without a swap-in "
+          f"({preempt['swap_in']['counters']})")
+    check(preempt["recompute"]["counters"].get("serving/swap_in", 0) == 0,
+          "the recompute run swapped in")
+    swap_same = preempt["swap_in"]["stream"] == \
+        preempt["uninterrupted"]["stream"]
+    margin, pcontent = spec_content_check(
+        torch, model, [victim],
+        {name: [preempt[name]["stream"]] for name in preempt},
+        unheld=("dup_resume",))
+    dup = pcontent["dup_resume"]["max_gap"] / margin["spec_margin"]
+    check(dup > 1.0, f"the planted duplicate resume reads {dup:.2f} x "
+                     f"SPEC_MARGIN: the content check cannot see it")
+    out["preemption"] = {
+        "pool_pages": LIFE_POOL, "watermark": LIFE_WATERMARK,
+        "arrival_tokens": LIFE_BIG, "margin": margin, "content": pcontent,
+        "swap_in_bit_identical_to_uninterrupted": swap_same,
+        "counters": {name: r["counters"] for name, r in preempt.items()}}
+    log(f"preemption: swap-in stream bit-identical to the uninterrupted "
+        f"one: {swap_same}; recompute's tokens equal "
+        f"{pcontent['recompute']['agree_with_first_run']:.3f}, swap-in's "
+        f"{pcontent['swap_in']['agree_with_first_run']:.3f}; the planted "
+        f"duplicate resume reads {dup:.2f} x SPEC_MARGIN (reported, not "
+        f"held to {SPEC_FAULT_FACTOR} x: it read 4.42 x on an H100 80GB "
+        f"HBM3 at 700 W)")
+
+    # 3. NaN isolation through the port's injector
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                            device=DEVICE)
+    sched = lc.LifecycleScheduler(eng, window_steps=LIFE_WINDOW)
+    for u in range(3):
+        sched.submit(lc.ServeRequest(uid=u, prompt=prompts[u],
+                                     max_new_tokens=16))
+    while any(sched.request(u).state != lc.RequestState.DECODE
+              for u in range(3)):
+        sched.step()
+    os.environ[injection.ENV_VAR] = "site=decode_window,kind=nan,times=1"
+    injection.clear()
+    try:
+        sched.run_until_idle()
+    finally:
+        os.environ.pop(injection.ENV_VAR, None)
+        injection.clear()
+    states = {u: (sched.request(u).state.value, sched.request(u).finish_reason)
+              for u in range(3)}
+    failed = [u for u, s in states.items() if s[0] == "failed"]
+    health = sched.health_state()[0]
+    check(len(failed) == 1 and states[failed[0]][1] == "nan"
+          and sched.counters["serving/nan_isolated"] == 1,
+          f"nan window: states {states}")
+    check(all(s == ("finished", "length") for u, s in states.items()
+              if u not in failed), f"nan window: batchmates {states}")
+    check(health == "degraded", f"nan window: health {health}")
+    check(eng.state_manager.free_blocks ==
+          eng.state_manager.allocator.total_blocks,
+          "nan window: pages not returned")
+    out["nan_isolation"] = {"states": states, "health": health}
+    log(f"nan window: uid {failed} FAILED/nan alone, health {health}")
+    del sched, eng
+    _free(torch)
+
+    # 4-8 over HTTP
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                            device=DEVICE)
+    sched = lc.LifecycleScheduler(eng, window_steps=LIFE_WINDOW)
+    srv = ServingServer(sched, port=0, bind="127.0.0.1").start()
+    port = srv.port
+    try:
+        # 4. concurrent blocking generates, one SSE stream
+        answers = [None] * n
+
+        def client(i):
+            answers[i] = _http(port, "/v1/generate",
+                               {"prompt": prompts[i],
+                                "max_new_tokens": LIFE_NEW})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in uids]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        http_wall = time.perf_counter() - t0
+        for i, a in enumerate(answers):
+            check(a is not None and a[0] == 200
+                  and a[2]["state"] == "finished"
+                  and len(a[2]["tokens"]) == LIFE_NEW,
+                  f"HTTP generate {i}: {a and (a[0], a[2].get('state'))}")
+            check(a[2]["ttft_s"] is not None and a[2]["tpot_s"] is not None,
+                  f"HTTP generate {i}: ttft_s/tpot_s not set")
+        http_streams = [a[2]["tokens"] for a in answers]
+        ttft = sorted(a[2]["ttft_s"] for a in answers)
+        tpot = sorted(a[2]["tpot_s"] for a in answers)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": prompts[0], "max_new_tokens": 16, "stream": True}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        conn.close()
+        events = [json.loads(line[len("data: "):])
+                  for line in body.splitlines() if line.startswith("data: ")]
+        sse = [t for e in events for t in e["tokens"]]
+        check(len(events) >= 2 and events[-1].get("state") == "finished"
+              and len(sse) == events[-1]["n_total"] == 16,
+              f"SSE: {len(events)} events, {len(sse)} tokens, n_total "
+              f"{events[-1].get('n_total') if events else None}")
+        out["sse"] = {"events": len(events),
+                      "equal_to_blocking_prefix": sse == http_streams[0][:16]}
+
+        # the HTTP cost of one request: a blocking POST against the same
+        # request on a second scheduler in process, in turns
+        single = {"prompt": prompts[0], "max_new_tokens": LIFE_WINDOW}
+        http_s, local_s = [], []
+        ieng = InferenceEngineV2(model, RaggedInferenceEngineConfig(),
+                                 device=DEVICE)
+        isched = lc.LifecycleScheduler(ieng, window_steps=LIFE_WINDOW)
+        for i in range(LIFE_HTTP_REPEATS):
+            t0 = time.perf_counter()
+            _http(port, "/v1/generate", single)
+            http_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            isched.submit(lc.ServeRequest(uid=i, prompt=prompts[0],
+                                          max_new_tokens=LIFE_WINDOW))
+            isched.run_until_idle()
+            torch.cuda.synchronize()
+            local_s.append(time.perf_counter() - t0)
+        del isched, ieng
+
+        # 5. shedding with max_queue 2 filled, then the drain rate
+        sched.max_queue = 2
+        hold = {"on": True}
+        _gated_step(sched, lambda: hold["on"])
+        queued = []
+        qthreads = [threading.Thread(target=lambda i=i: queued.append(_http(
+            port, "/v1/generate", {"prompt": prompts[i],
+                                   "max_new_tokens": LIFE_WINDOW})))
+            for i in (1, 2)]
+        try:
+            for t in qthreads:
+                t.start()
+            check(_wait_for(lambda: len(sched._waiting) == 2, 60),
+                  "the queue did not fill")
+            code, headers, shed = _http(port, "/v1/generate", single)
+        finally:
+            hold["on"] = False
+            for t in qthreads:
+                t.join(timeout=600)
+            del sched.step
+            sched.max_queue = 64
+        retry = headers.get("Retry-After")
+        check(code == 429 and shed["reason"] == "queue_full"
+              and retry is not None and retry.isdigit() and int(retry) >= 1,
+              f"shed: {code} {shed} Retry-After {retry}")
+        check(len(queued) == 2 and all(q[0] == 200 for q in queued),
+              "the queued requests did not finish")
+        for _ in range(3):               # a clean window last
+            r = eng.last_decode_roofline
+            if r and not r["compile_polluted"]:
+                break
+            _http(port, "/v1/generate", single)
+        r = eng.last_decode_roofline
+        pred = sched.predicted_tok_per_s()
+        check(r is not None and not r["compile_polluted"]
+              and pred == r["decode_tok_per_s"]
+              and pred != sched.fallback_tok_per_s,
+              f"predicted_tok_per_s {pred} against the roofline's "
+              f"{r and r['decode_tok_per_s']}")
+        out["shedding"] = {"status": code, "retry_after": int(retry),
+                           "predicted_tok_per_s": pred,
+                           "roofline": r}
+
+        # 6. /v1/prefill -> kv_import on both wires, on the 128-token
+        # prompt: a /v1/generate body is capped at 64 MB (the JAX
+        # server's ceiling), and base64 fp32 rows of llama3-8B take
+        # 349,525 B a token, so ~190 tokens fit
+        kp = prompts[0]
+        counts = _life_counters(ops, qz)
+        imported0 = sched.counters["serving/kv_import_tokens"]
+        cont, frames = {}, {}
+        for wire in ("fp32", "int8"):
+            code, _, pre = _http(port, "/v1/prefill",
+                                 {"prompt": kp[:-1], "wire": wire})
+            check(code == 200 and pre["n_tokens"] == len(kp) - 1,
+                  f"/v1/prefill {wire}: {code}")
+            frames[wire] = len(pre["kv"])
+            code, _, a = _http(port, "/v1/generate",
+                               {"prompt": kp, "max_new_tokens": LIFE_NEW,
+                                "kv_import": pre["kv"]})
+            check(code == 200 and a["state"] == "finished",
+                  f"kv_import {wire}: {code}")
+            cont[wire] = a["tokens"]
+        kd = {name: v - counts[name]
+              for name, v in _life_counters(ops, qz).items()}
+        check(kd["quant_pack_wire"] >= 1 and kd["unpack_dequant_wire"] >= 1,
+              f"the int8 wire launched K9a {kd['quant_pack_wire']} and K10a "
+              f"{kd['unpack_dequant_wire']} times")
+        check(frames["int8"] <= 0.3 * frames["fp32"],
+              f"int8 frame {frames['int8']} B > 0.3 x fp32's "
+              f"{frames['fp32']} B")
+        shipped = sched.counters["serving/kv_import_tokens"] - imported0
+        check(shipped == 2 * (len(kp) - 1),
+              f"serving/kv_import_tokens rose by {shipped}, not "
+              f"{2 * (len(kp) - 1)}")
+        local = http_streams[0]
+        dmargin, dcontent = spec_content_check(
+            torch, model, [kp], {"local": [local],
+                                 "import_fp32": [cont["fp32"]],
+                                 "import_int8": [cont["int8"]]},
+            unheld=("import_int8",))
+        out["kv_import"] = {"frame_b64_bytes": frames,
+                            "k9a_launches": kd["quant_pack_wire"],
+                            "k10a_launches": kd["unpack_dequant_wire"],
+                            "kv_import_tokens": shipped,
+                            "margin": dmargin, "content": dcontent}
+
+        # 7. client disconnect, with the driver held until the cancel
+        total = eng.state_manager.allocator.total_blocks
+        req0 = sched.counters["serving/requests"]
+        watch = {"uid": None}
+
+        def holding():
+            u = watch["uid"]
+            r_ = sched.request(u) if u is not None else None
+            return (r_ is not None and bool(r_.produced)
+                    and u not in sched._cancel_requested
+                    and r_.state not in lc.TERMINAL_STATES)
+
+        _gated_step(sched, holding)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/v1/generate", body=json.dumps(
+                {"prompt": prompts[2], "max_new_tokens": 512,
+                 "stream": True}),
+                headers={"Content-Type": "application/json"})
+            check(_wait_for(lambda: sched.counters["serving/requests"]
+                            > req0), "the streaming request never arrived")
+            watch["uid"] = uid = max(sched._reqs)
+            resp = conn.getresponse()
+            resp.read(32)                # its first event arrived
+            resp.close()
+            conn.close()
+            cancelled = _wait_for(lambda: sched.request(uid).state ==
+                                  lc.RequestState.CANCELLED, 60)
+        finally:
+            del sched.step
+        freed = _wait_for(lambda: eng.state_manager.free_blocks == total, 60)
+        check(cancelled and freed,
+              f"disconnect: state {sched.request(uid).state}, free "
+              f"{eng.state_manager.free_blocks} of {total}")
+        out["disconnect"] = {"produced_before_cancel":
+                             len(sched.request(uid).produced)}
+
+        # 8. drain: the request in flight finishes, a POST gets 503
+        results = []
+        req0 = sched.counters["serving/requests"]
+        done0 = sched.counters["serving/completed"]
+        t = threading.Thread(target=lambda: results.append(_http(
+            port, "/v1/generate", {"prompt": prompts[1],
+                                   "max_new_tokens": LIFE_NEW})))
+        t.start()
+        check(_wait_for(lambda: sched.counters["serving/requests"] > req0),
+              "the drain's request never arrived")
+        sched.start_drain()
+        code, headers, refused = _http(port, "/v1/generate", single)
+        check(code == 503 and refused["reason"] == "draining",
+              f"POST during the drain: {code} {refused}")
+        done1 = sched.counters["serving/completed"]
+        summary = srv.drain_and_stop(deadline_s=120)
+        t.join(timeout=120)
+        check(len(results) == 1 and results[0][0] == 200
+              and len(results[0][2]["tokens"]) == LIFE_NEW,
+              "the request in flight did not finish")
+        check(summary == {"completed": sched.counters["serving/completed"]
+                          - done1, "expired": 0}
+              and sched.counters["serving/completed"] - done0 == 1,
+              f"drain summary {summary}")
+        out["drain"] = summary
+    finally:
+        srv.stop()
+    del sched, eng
+    _free(torch)
+
+    # 1 and 4: every stream against its re-score
+    margin, content = spec_content_check(
+        torch, model, prompts, {"generate": gen_out,
+                                "scheduler": sched_streams,
+                                "http": http_streams},
+        max_tokens=LIFE_RESCORE_TOKENS)
+    out["content"] = {"margin": margin, "runs": content}
+
+    # 9. the command line
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.inference.v2.server",
+           "--model", "tiny", "--port", "0", "--bind", "127.0.0.1"]
+    if DEVICE != "cuda":
+        cmd += ["--device", DEVICE]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True,
+                            env=dict(os.environ, PYTHONPATH=root))
+    try:
+        cport = None
+        for line in proc.stdout:
+            if "listening on http://" in line:
+                cport = int(line.rsplit(":", 1)[1])
+                break
+        check(cport is not None, "the CLI server printed no listening line")
+        code, _, a = _http(cport, "/v1/generate",
+                           {"prompt": [3, 5, 7, 11], "max_new_tokens": 8})
+        check(code == 200 and len(a["tokens"]) == 8, f"CLI POST: {code}")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"the CLI server exited {rc} on SIGTERM")
+        out["cli"] = {"start_to_exit_s": time.perf_counter() - t0,
+                      "sigterm_to_exit_s": time.perf_counter() - t_term}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    out["launches"] = {name: v - counts0[name]
+                       for name, v in _life_counters(ops, qz).items()}
+    out["summary"] = {
+        "ttft_s": {"p50": ttft[len(ttft) // 2],
+                   "p95": ttft[min(len(ttft) - 1,
+                                   math.ceil(0.95 * len(ttft)) - 1)]},
+        "tpot_s": {"p50": tpot[len(tpot) // 2], "max": tpot[-1]},
+        "http_8_clients_wall_s": http_wall,
+        "scheduler_decode_tok_per_s": out["scheduler"]["decode_tok_per_s"],
+        "generate_decode_tok_per_s":
+            serving["decode_tok_per_s"]["median"],
+        "http_request_s": _median(http_s),
+        "in_process_request_s": _median(local_s),
+        "http_request_runs_s": http_s, "in_process_request_runs_s": local_s,
+        "http_cost_s": _median(http_s) - _median(local_s),
+        "launches": out["launches"],
+        "decode_roofline": {
+            key: roof[key] for key in ("decode_tok_per_s", "hbm_gbps",
+                                       "hbm_pct_peak", "n_seqs", "steps",
+                                       "windows")},
+        "card": CARD}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"serving_lifecycle_summary": out["summary"],
+                    "phase_s": out["phase_s"]}))
+    log(f"serving lifecycle: {out['phase_s']:.1f} s; {CARD}")
     return out
 
 
@@ -5699,6 +6351,9 @@ def main():
                                               len(bf16_out[0]))
         prefix_serving = phase_prefix_serving(torch, ops, model)
         speculative = phase_speculative(torch, ops, model, prompts)
+        serving_lifecycle = phase_serving_lifecycle(torch, ops, model,
+                                                    prompts, bf16_out,
+                                                    serving)
         del model
         _free(torch)
         families = phase_families(torch, ops)
@@ -5748,6 +6403,7 @@ def main():
                                      "handoff": handoff}}))
     log(json.dumps({"prefix_serving": prefix_serving}))
     log(json.dumps({"speculative": speculative, "families": families}))
+    log(json.dumps({"serving_lifecycle": serving_lifecycle}))
     log(json.dumps({"data_parallel_world": world,
                     "matmul_planted_faults_over_limit": planted}))
     log(json.dumps({"kernels": kernels}))

@@ -20,6 +20,13 @@ cached prefix pages spill to host memory (``ragged/kv_swap.py``) and graft
 back. The ``decode_window`` and ``kv_alloc`` fault sites
 (``runtime/fault/injection.py``) poison a window or exhaust the pool.
 
+Every drained decode window feeds the analytic HBM roofline
+(``profiling/serving_roofline.py``): ``last_decode_roofline`` holds the
+newest report, which the lifecycle scheduler reads as its predicted drain
+rate. A window flagged ``compiled`` (the first of its decode-loop key in
+the process, which also pays the first-use build and load of the kernel
+libraries on the card) is kept off that rate and off the hang check.
+
 Speculative decoding (``speculative.py`` drives it):
 :meth:`InferenceEngineV2.verify_decode` scores each sequence's seed and
 draft tokens in one forward and accepts the longest prefix that matches
@@ -50,6 +57,22 @@ from .model_runner import (build_decode_loop, build_ragged_step,
 from .ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from .ragged.ragged_wrapper import RaggedBatchWrapper
 from .ragged.sequence_descriptor import DSStateManager
+
+#: decode-loop and verify-bucket keys that have run in this process. The
+#: first window of a key is flagged ``compiled``: in the JAX package it
+#: traces and compiles its program; here it may pay the first-use build
+#: and load of the CUDA kernel libraries (``ops/op_builder/builder.py``)
+#: and the allocator's first segments at its shapes, so its wall time says
+#: nothing about decode throughput
+_KEYS_RUN: set = set()
+
+
+def _first_use(key: Tuple) -> bool:
+    """True the first time ``key`` is seen in this process."""
+    if key in _KEYS_RUN:
+        return False
+    _KEYS_RUN.add(key)
+    return True
 
 
 class SchedulingResult(Enum):
@@ -164,6 +187,11 @@ class InferenceEngineV2:
                 self.state_manager.prefix_cache.spill_fn = \
                     self.kv_swap.spill_prefix_node
         model.to(device=self.device, dtype=c.dtype)
+        self._param_bytes = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+        #: the newest drained decode window's HBM roofline report
+        #: (``profiling/serving_roofline.py``), None before the first
+        self.last_decode_roofline: Optional[Dict] = None
         self._num_blocks = num_blocks
         self._wrappers: Dict[Tuple[int, int], RaggedBatchWrapper] = {}
         #: device-resident continuous-decode state: the advanced packed
@@ -543,6 +571,7 @@ class InferenceEngineV2:
         batch = wrapper.finalize()
         meta = self._upload(batch.pack())
         step = self._verify_step_for(bucket)
+        first_use = _first_use(("verify", str(self.device), bucket))
 
         t0 = time.perf_counter()
         self.decode_windows_dispatched += 1
@@ -585,7 +614,7 @@ class InferenceEngineV2:
             nonfinite_uids=nonfinite_uids, drafted=drafted,
             accepted_draft=accepted_draft,
             emitted=sum(len(t) for t in accepted), duration_s=duration_s,
-            poisoned=poisoned)
+            compiled=first_use, poisoned=poisoned)
 
     # ------------------------------------------------------------------ #
     # Fused multi-step decode (device-resident loop)
@@ -630,9 +659,11 @@ class InferenceEngineV2:
             raise RuntimeError(f"cannot schedule decode window: {verdict}")
         s_b = self._seq_bucket(n)
         bucket = (s_b, s_b)
+        ctx_before = []
         grew = False
         for uid in uids:
             seq = self.state_manager.get_or_create_sequence(uid)
+            ctx_before.append(seq.seen_tokens)
             prev = seq.cur_allocated_blocks
             if not self.state_manager.maybe_allocate_kv(seq, steps):
                 raise RuntimeError("KV allocation failed after can_schedule")
@@ -665,10 +696,17 @@ class InferenceEngineV2:
                     self.state_manager.get_sequence(uid), [int(tok)])
             meta_dev = self._upload(wrapper.finalize().pack())
 
+        c = self.config
+        top_k = c.top_k if top_k is None else int(top_k)
+        first_use = _first_use(("decode", str(self.device), bucket, steps,
+                                float(temperature), top_k))
         # fault-injection site (DSTPU_FAULT_INJECT site=decode_window):
         # `slow` sleeps here, `kill` dies here, `nan` poisons the FIRST
         # scheduled sequence's cached context so the window genuinely
-        # produces non-finite logits for that row
+        # produces non-finite logits for that row. t0 starts BEFORE the
+        # site so an injected stall lands inside the window's wall time,
+        # where the scheduler's hang check looks
+        t0 = time.perf_counter()
         self.decode_windows_dispatched += 1
         poisoned = False
         try:
@@ -689,13 +727,12 @@ class InferenceEngineV2:
                 resume = False
             self._poison_kv(uids[0])
 
-        c = self.config
         loop = build_decode_loop(
             self.cfg, max_q=bucket[0], max_seqs=bucket[1],
             max_blocks=self._wrapper_for(bucket).max_blocks,
             block_size=c.block_size, num_blocks=self._num_blocks,
             attn_impl=c.attn_impl, steps=steps, temperature=temperature,
-            top_k=c.top_k if top_k is None else int(top_k))
+            top_k=top_k)
         toks, meta_out, nonfinite = loop(
             self.model, self.kv.pages, meta_dev,
             self._generator if generator is None else generator)
@@ -710,8 +747,10 @@ class InferenceEngineV2:
         # was computed over poisoned pages
         self._decode_state = None if poisoned else {
             "uids": uids_t, "bucket": bucket, "meta": meta_out, "seen": seen}
+        mean_ctx = float(np.mean(ctx_before)) + steps / 2.0 if n else 0.0
         return DecodeWindow(self, toks, n, steps, resume, nonfinite,
-                            self._decode_state, list(uids))
+                            self._decode_state, list(uids), mean_ctx=mean_ctx,
+                            t0=t0, compiled=first_use)
 
     @torch.inference_mode()
     def _poison_kv(self, uid: int) -> None:
@@ -733,6 +772,38 @@ class InferenceEngineV2:
             return
         self.kv.pages.index_fill_(0, self.kv.phys_pages(own), float("nan"))
         self._decode_state = None
+
+    def _record_decode_roofline(self, window: "DecodeWindow") -> None:
+        """Feed a drained decode window into the analytic HBM roofline
+        (decode is bandwidth-bound, so %-of-peak HBM, not MFU, is its
+        utilization number) and keep the report on
+        ``last_decode_roofline``. A ``compiled`` window's report is kept
+        too, flagged ``compile_polluted``: its wall time includes the
+        first-use costs. (The JAX engine also publishes the report as
+        telemetry gauges; the port's telemetry plane is ROADMAP M11.)"""
+        if not window.n_seqs or not window.duration_s:
+            return
+        from ...profiling.roofline import device_spec
+        from ...profiling.serving_roofline import (decode_roofline_report,
+                                                   decode_window_bytes,
+                                                   format_decode_roofline)
+
+        cfg = self.cfg
+        kv_cfg = self.kv.config
+        bytes_by_kernel = decode_window_bytes(
+            num_layers=cfg.num_layers, num_kv_heads=kv_cfg.num_kv_heads,
+            head_dim=kv_cfg.head_dim,
+            kv_dtype_bytes=self.kv.pages.element_size(),
+            param_bytes=self._param_bytes, n_seqs=window.n_seqs,
+            steps=window.steps, mean_ctx=window.mean_ctx)
+        report = decode_roofline_report(bytes_by_kernel, window.duration_s,
+                                        window.n_seqs, window.steps,
+                                        spec=device_spec(self.device))
+        report["resumed"] = window.resumed
+        report["compile_polluted"] = window.compiled
+        self.last_decode_roofline = report
+        if not window.compiled:
+            logger.debug(format_decode_roofline(report))
 
     # ------------------------------------------------------------------ #
     # Dynamic SplitFuse scheduling (MII-layer policy, host-only logic)
@@ -826,6 +897,7 @@ class VerifyResult:
     accepted_draft: int          # of those, matched the greedy chain
     emitted: int                 # tokens produced (>= len(uids) - poisoned)
     duration_s: float            # verify forward wall time
+    compiled: bool               # first use of this verify bucket
     poisoned: bool               # the decode_window nan injection fired
 
     @property
@@ -835,16 +907,30 @@ class VerifyResult:
 
 class DecodeWindow:
     """Handle for an enqueued fused decode window; :meth:`tokens` waits for
-    the result."""
+    the result and (once) feeds the window's wall time into the decode
+    HBM roofline.
+
+    ``duration_s`` is enqueue→drain WALL time, from before the fault site
+    to :meth:`tokens`: host work done between the enqueue and
+    :meth:`tokens` inflates it and understates the roofline's tok/s.
+    ``mean_ctx`` is the sequences' mean context over the window (their
+    length at the start plus half the steps). ``compiled`` is True on the
+    first window of its decode-loop key in the process (see
+    ``_KEYS_RUN``)."""
 
     def __init__(self, engine: InferenceEngineV2, toks_dev: torch.Tensor,
                  n_seqs: int, steps: int, resumed: bool,
                  nonfinite_dev: torch.Tensor, state: Optional[dict],
-                 uids: Sequence[int] = ()):
+                 uids: Sequence[int], mean_ctx: float, t0: float,
+                 compiled: bool):
         self.engine = engine
         self.n_seqs = n_seqs
         self.steps = steps
         self.resumed = resumed
+        self.mean_ctx = mean_ctx
+        self.compiled = compiled
+        self._t0 = t0
+        self.duration_s: Optional[float] = None
         #: uids in row order, so the nonfinite flags map back to requests
         self.uids = list(uids)
         self._toks_dev = toks_dev
@@ -860,6 +946,7 @@ class DecodeWindow:
         if self._toks is None:
             self._toks = self._toks_dev[:, :self.n_seqs].cpu().numpy()
             self.nonfinite = self._nonfinite_dev[:self.n_seqs].cpu().numpy()
+            self.duration_s = time.perf_counter() - self._t0
             self._toks_dev = None
             self._nonfinite_dev = None
             if self._state is not None and \
@@ -868,6 +955,7 @@ class DecodeWindow:
                 # is host-known, resume can honour caller-supplied seeds
                 self._state["last_tokens"] = tuple(
                     int(t) for t in self._toks[-1])
+            self.engine._record_decode_roofline(self)
         return self._toks
 
     def nonfinite_uids(self) -> List[int]:

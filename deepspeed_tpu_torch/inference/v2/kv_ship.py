@@ -82,6 +82,9 @@ def export_kv(engine, uid: int, tokens: List[int],
     bs = engine.config.block_size
     n_pages = -(-n // bs)
     c = engine.kv.config
+    # advanced indexing COPIES the pages: the shipment must not be a view
+    # into the pool, whose blocks the lifecycle scheduler frees (and a
+    # later forward may overwrite) right after a prefill-only export
     pages = engine.kv.pages[engine.kv.phys_pages(seq.blocks[:n_pages])]
     rows = pages.reshape(engine.cfg.num_layers, n_pages * bs,
                          2 * c.num_kv_heads, c.head_dim)[:, :n]
@@ -176,16 +179,27 @@ def to_wire(shipment: KVShipment, wire: str = "fp32") -> bytes:
     return MAGIC + struct.pack(">I", len(hdr)) + hdr + payload
 
 
+def read_header(data: bytes):
+    """The JSON header of a DSKV1 frame and its payload bytes, read on the
+    host (no device work). Raises ``ValueError`` on anything that is not a
+    frame."""
+    if data[:len(MAGIC)] != MAGIC or len(data) < len(MAGIC) + 4:
+        raise ValueError("not a DSKV1 frame")
+    (hlen,) = struct.unpack(">I", data[len(MAGIC):len(MAGIC) + 4])
+    off = len(MAGIC) + 4
+    try:
+        header = json.loads(data[off:off + hlen])
+        header["tokens"], header["shape"], header["wire"]
+    except (ValueError, TypeError, KeyError) as e:
+        raise ValueError(f"bad DSKV1 header: {e!r}")
+    return header, data[off + hlen:]
+
+
 def from_wire(data: bytes, device=None) -> KVShipment:
     """Decode a DSKV1 frame; the rows are rebuilt on ``device`` (``None``
     means CUDA; the int8 wire is dequantized there by K10a)."""
-    if data[:len(MAGIC)] != MAGIC:
-        raise ValueError("not a DSKV1 frame")
+    header, payload = read_header(data)
     dev = get_accelerator().resolve_device(device)
-    (hlen,) = struct.unpack(">I", data[len(MAGIC):len(MAGIC) + 4])
-    off = len(MAGIC) + 4
-    header = json.loads(data[off:off + hlen])
-    payload = data[off + hlen:]
     shape = tuple(int(d) for d in header["shape"])
     n_elems = int(np.prod(shape))
     if header["wire"] == "fp32":
@@ -221,5 +235,5 @@ def from_b64(data: str, device=None) -> KVShipment:
 
 
 __all__ = ["KVShipment", "export_kv", "import_kv", "int8_error_bound",
-           "to_wire", "from_wire", "to_b64", "from_b64", "MAGIC",
+           "to_wire", "read_header", "from_wire", "to_b64", "from_b64", "MAGIC",
            "WIRE_FORMATS", "INT8_GROUP"]

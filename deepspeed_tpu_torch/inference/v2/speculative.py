@@ -12,9 +12,9 @@ changes speed, not content (on the card the verify windows and fused
 decode run different kernels at different token counts, so the two may
 part at near-ties of the logits).
 
-Two drafters, in cost order (a caller builds one directly; the serving
-layer's ``SpeculativeConfig`` and ``make_drafter`` wait for the lifecycle
-scheduler, ROADMAP M7.7):
+Two drafters, in cost order (a caller builds one directly, or the
+lifecycle scheduler builds it from a :class:`SpeculativeConfig` through
+:func:`make_drafter`):
 
   * :class:`NGramDrafter`: host-side suffix matching over the request's
     own prompt and generated tokens; no second model, no device work;
@@ -30,10 +30,42 @@ copied or freed mid-block, and the next append overwrites the dead rows.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ...utils.logging import logger
+
+SPEC_MODES = ("off", "ngram", "draft_model")
+
+
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """Knobs for the serving spec-dec layer.
+
+    ``mode``: drafter selection (``off`` | ``ngram`` | ``draft_model``).
+    ``k``: draft candidates per verify window — the speedup ceiling is
+    ``k+1`` tokens per model step at acceptance 1.0; past the stream's
+    typical run length extra candidates are pure rejected work.
+    ``ngram_max``/``ngram_min``: longest/shortest suffix the n-gram
+    drafter tries to match (longest first — longer context, better
+    prediction).
+    """
+
+    mode: str = "off"
+    k: int = 4
+    ngram_max: int = 3
+    ngram_min: int = 1
+
+    def __post_init__(self):
+        if self.mode not in SPEC_MODES:
+            raise ValueError(f"speculative.mode must be one of {SPEC_MODES},"
+                             f" got {self.mode!r}")
+        if self.k < 1:
+            raise ValueError(f"speculative.k must be >= 1, got {self.k}")
+        if not (1 <= self.ngram_min <= self.ngram_max):
+            raise ValueError("need 1 <= ngram_min <= ngram_max, got "
+                             f"[{self.ngram_min}, {self.ngram_max}]")
 
 
 class NGramDrafter:
@@ -193,6 +225,19 @@ class DraftModelDrafter:
             self.eng.flush([uid])
 
 
+def make_drafter(config: SpeculativeConfig, draft_engine=None):
+    """Config → drafter instance (None for mode='off')."""
+    if config.mode == "off":
+        return None
+    if config.mode == "ngram":
+        return NGramDrafter(ngram_max=config.ngram_max,
+                            ngram_min=config.ngram_min)
+    if draft_engine is None:
+        raise ValueError("speculative.mode='draft_model' needs a draft "
+                         "engine (see draft_engine_from_checkpoint)")
+    return DraftModelDrafter(draft_engine)
+
+
 def draft_engine_from_checkpoint(ckpt_dir: str, model, engine_config=None,
                                  tag: Optional[str] = None, dtype=None,
                                  device=None):
@@ -223,8 +268,9 @@ def speculative_decode(engine, drafter, uids: Sequence[int],
 
     ``histories[i]`` is uid i's full stream so far, ENDING with
     ``seed_tokens[i]`` (the next decode input, not yet cached) — the same
-    invariant the JAX lifecycle scheduler maintains (the port's
-    scheduler is ROADMAP M7.7).
+    invariant the lifecycle scheduler maintains (``lifecycle.py``, which
+    drives verify windows itself because it interleaves lifecycle
+    passes).
 
     Returns ``({uid: first-steps tokens}, stats)`` where stats carries
     windows / drafted / accepted_draft / draft_s / verify_s for

@@ -78,14 +78,19 @@ SERVING_TIER_MODULES = (
     "inference/v2/ragged/prefix_cache.py",
     "inference/v2/ragged/page_heat.py",
     "inference/v2/ragged/kv_swap.py",
+    "inference/v2/lifecycle.py",
+    "inference/v2/server.py",
+    "profiling/roofline.py",
+    "profiling/serving_roofline.py",
 )
 
 
 @pytest.mark.parametrize("rel", SERVING_TIER_MODULES)
 def test_serving_tier_modules_stand_alone(rel):
-    """The prefix cache, page heat, host tier, KV swap and the fault
-    injector import neither JAX nor the JAX package, not even its
-    stdlib-only ``injection.py``: the port keeps its own copies."""
+    """The prefix cache, page heat, host tier, KV swap, the fault
+    injector, the lifecycle scheduler, its HTTP server and the rooflines
+    import neither JAX nor the JAX package, not even its stdlib-only
+    ``injection.py``: the port keeps its own copies."""
     path = os.path.join(PKG_DIR, rel)
     mods = list(_imports(path))
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",

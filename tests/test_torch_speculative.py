@@ -273,6 +273,40 @@ def test_ngram_drafter_refuses_bad_bounds(bounds):
         jax_spec.NGramDrafter(ngram_max, ngram_min)
 
 
+@pytest.mark.parametrize("kw", [{"mode": "medusa"}, {"k": 0},
+                                {"ngram_min": 0},
+                                {"ngram_max": 2, "ngram_min": 3}])
+def test_speculative_config_errors_match_jax(kw):
+    """``SpeculativeConfig`` refuses what the JAX one refuses, with the
+    same message."""
+    with pytest.raises(ValueError) as ref:
+        jax_spec.SpeculativeConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        spec.SpeculativeConfig(**kw)
+    assert str(got.value) == str(ref.value)
+    assert spec.SPEC_MODES == jax_spec.SPEC_MODES
+
+
+def test_make_drafter():
+    """``make_drafter``: None when off, an n-gram drafter with the
+    config's bounds (drafting as the JAX one does), a draft-model drafter
+    over the engine handed in, and a refusal without one."""
+    assert spec.make_drafter(spec.SpeculativeConfig()) is None
+    cfg = dict(mode="ngram", k=3, ngram_max=4, ngram_min=2)
+    got = spec.make_drafter(spec.SpeculativeConfig(**cfg))
+    ref = jax_spec.make_drafter(jax_spec.SpeculativeConfig(**cfg))
+    assert isinstance(got, NGramDrafter)
+    assert (got.ngram_max, got.ngram_min) == (4, 2)
+    stream = [1, 2, 3, 9, 1, 2, 3, 7, 1, 2, 3]
+    assert got.draft(0, stream, 3) == ref.draft(0, stream, 3) == [7, 1, 2]
+    with pytest.raises(ValueError, match="draft engine"):
+        spec.make_drafter(spec.SpeculativeConfig(mode="draft_model"))
+    eng = port_engine_for(tiny_weights(), max_seqs=1)
+    d = spec.make_drafter(spec.SpeculativeConfig(mode="draft_model"),
+                          draft_engine=eng)
+    assert isinstance(d, DraftModelDrafter) and d.eng is eng
+
+
 # --------------------------------------------------------------------- #
 # The port's engine
 # --------------------------------------------------------------------- #
