@@ -231,6 +231,21 @@ non-zero before the last line is printed:
      ``speculative_decode`` with ``NGramDrafter`` under the content
      check (the margin at most ``SPEC_MARGIN_CAP``); weights and pool
      bytes printed;
+ 19d. (after phase 19c) MoE serving (``phase_moe_serving``): Mixtral-8x7B
+     widths cut to ``MIXTRAL_LAYERS`` of 32 layers (46.97 GB of bf16
+     weights, the router float32) on the default engine (cf 2.0): layer
+     0's routing on 64 flat tokens (8 padding) at cf 2.0 and 0.5, the
+     card's gate equal to the CPU's on the same logits (slots, capacity
+     and counts; values within ``MOE_GATE_ULPS``), also with planted
+     ties, the bf16 block within ``MOE_LIMIT`` of its float32 CPU run
+     from the card's slots, and a planted fault (the drop mask left out)
+     above it; ``generate`` on 8 prompts of 128-1024 tokens, ``MOE_NEW``
+     new tokens each (untimed with the schedule and the gates recorded,
+     then ``REPEATS`` timed; K6 and K7 must launch), dropped assignments
+     a put and a decode step, the decode roofline, a profiled 8 x 8
+     window, and every emitted token within ``SPEC_MARGIN`` of its
+     teacher-forced re-score in the same batches, routed as
+     ``generate`` was (``moe_content_check``);
  20. (last) hold the data-parallel kernels against their plain versions:
      K9b ``quant_pack_wire(bits=4)`` bit for bit on the int8 phase's edge
      batches (even group sizes) and on a 525 M-element float32 leaf of the
@@ -1889,6 +1904,8 @@ _KERNEL_GROUPS = (            # kernel-name substrings → what they are
     ("K1 flash forward", ("flash_fwd_wgmma_kernel",)),
     ("K2 flash dQ", ("flash_bwd_dq_wgmma_kernel",)),
     ("K3 flash dK/dV", ("flash_bwd_dkv_wgmma_kernel",)),
+    ("K6/K7 paged attention", ("ragged_paged", "decode_split_kernel",
+                               "decode_merge_kernel")),
     ("cuBLAS GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
     ("PyTorch elementwise and reductions", ("at::native::",)),
 )
@@ -1902,7 +1919,6 @@ def profile_step(torch, engine, batch, step_s, opt_type):
     full launch queue, not device work, and are counted apart. CUDA events
     around the engine's ``_apply_update`` split off the update (unscale,
     clip, optimizer) from the forward and backward."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     apply_update = engine._apply_update
@@ -1930,6 +1946,20 @@ def profile_step(torch, engine, batch, step_s, opt_type):
         # no reference cycle keeping the engine's tensors alive after it
         del engine._apply_update
     update_ms = marks[0][0].elapsed_time(marks[0][1])
+    return device_breakdown(
+        prof, wall, f"profiled step (timed median {1e3 * step_s:.1f} ms)",
+        f"the update (unscale, clip, {opt_type}) {update_ms:.1f} ms of it",
+        update_ms=update_ms)
+
+
+def device_breakdown(prof, wall, what, note="", **extra):
+    """A profile's device time by kernel, grouped (``_KERNEL_GROUPS``),
+    and the device's busy share of ``wall`` seconds (the union of the
+    device events' intervals; its idle share is the rest). CUPTI's
+    "Command Buffer Full" records are host-side stalls of a full launch
+    queue, not device work, and are counted apart. Logged; → numbers."""
+    from torch.autograd import DeviceType
+
     by_name, spans, stalls = {}, [], 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1957,20 +1987,18 @@ def profile_step(torch, engine, batch, step_s, opt_type):
                       if any(sub in name for sub in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     total = sum(groups.values())
-    log(f"profiled step: wall {1e3 * wall:.1f} ms (timed median "
-        f"{1e3 * step_s:.1f} ms), device busy {busy:.1f} ms "
+    log(f"{what}: wall {1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1e3 * wall):.1f}% of wall, idle "
         f"{100 - 100 * busy / (1e3 * wall):.1f}%); {len(spans)} device "
-        f"events, {stalls} launch-queue-full stalls; the update (unscale, "
-        f"clip, {opt_type}) {update_ms:.1f} ms of it")
+        f"events, {stalls} launch-queue-full stalls" +
+        (f"; {note}" if note else ""))
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {group}: {ms:.2f} ms ({100 * ms / max(total, 1e-9):.1f}% "
             f"of device time)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
         log(f"  {ms:8.2f} ms  x{n:<4d} {name[:110]}")
-    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
-            "update_ms": update_ms,
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, **extra,
             "device_events": len(spans), "queue_full_stalls": stalls,
             "groups_ms": groups,
             "top": [{"ms": ms, "count": n, "name": name[:160]}
@@ -4266,10 +4294,11 @@ def spec_prefill(eng, uids, prompts):
     return torch.stack(rows)
 
 
-def forced_logits(torch, eng, uids, chunks):
+def forced_logits(torch, eng, uids, chunks, bucket=None):
     """One ``verify_mode`` forward (the logits of every position; K6 on the
     paged path) over each uid's chunk, appended at its current length:
-    teacher forcing in the engine's own batches. → ``[sum len, V]``
+    teacher forcing in the engine's own batches (``bucket``: the (token,
+    seq) budgets, by default ``eng.bucket_for``'s). → ``[sum len, V]``
     float32, the uids' rows in order."""
     from deepspeed_tpu_torch.inference.v2.model_runner import \
         build_ragged_step
@@ -4277,7 +4306,7 @@ def forced_logits(torch, eng, uids, chunks):
     sm = eng.state_manager
     n = sum(len(c) for c in chunks)
     check(n <= eng.config.max_tokens, f"forced batch of {n} tokens")
-    bucket = eng.bucket_for(n, len(uids))
+    bucket = bucket or eng.bucket_for(n, len(uids))
     wrapper = eng._wrapper_for(bucket)
     wrapper.clear()
     for uid, c in zip(uids, chunks):
@@ -5434,6 +5463,499 @@ def paged_vs_gather(torch, model, batch, tag, **engine_kw):
     return rel
 
 
+# --------------------------------------------------------------------- #
+# MoE serving (ROADMAP M7.9)
+# --------------------------------------------------------------------- #
+#: mistralai/Mixtral-8x7B-v0.1 config.json (``TransformerConfig.
+#: mixtral_8x7b``): hidden 4096, intermediate 14336, 32 layers, 32 heads
+#: on 8 KV heads (head dim 128), vocab 32000, 8 local experts, 2 a token,
+#: rope_theta 1e6. Depth cut to MIXTRAL_LAYERS: the whole model is 93.4 GB
+#: in bf16, more than the card's 80 GB; 16 layers are 46.97 GB
+MIXTRAL_LAYERS = 16
+MOE_NEW = 64                       # generate's new tokens a prompt
+MOE_MAX_SEQS = 8
+MOE_ROUTE_TOKENS = 64              # the routing check's flat batch
+MOE_ROUTE_PAD = 8                  # of which padding, the last rows
+MOE_ROUTE_CFS = (2.0, 0.5)         # the engine's default; one that drops
+#: the routing check's gate values: the card's float32 softmax (CUDA's
+#: expf) and the CPU's (SLEEF's) may round an exp one ulp apart and sum
+#: eight of them in another order, so the renormalised top-k values may
+#: sit a few float32 ulps apart; slots, capacity and counts must be equal
+MOE_GATE_ULPS = 16
+#: the routed block in bf16 against its float32 run on the CPU from the
+#: card's slots and gate values: the output roundings, 2**-8 of |got| +
+#: |ref| + sum_c |g_c eo_c|, plus MOE_SIGMAS x 2**-8 x sqrt(sum_c g_c**2
+#: (a_c**2 @ W_c**2)): the bf16 roundings of the gate and up products,
+#: SiLU and their product a (a few 2**-9 of each term) carried through
+#: the down projection's F-long sums (a_c: token's SwiGLU row of its
+#: choice c, W_c that expert's down projection)
+MOE_SIGMAS = 16.0
+MOE_LIMIT = ("2**-8 x (|got| + |ref| + sum_c |g_c eo_c|) + "
+             f"{MOE_SIGMAS:g} x 2**-8 x sqrt(sum_c g_c**2 (a_c**2 @ "
+             "W_c**2))")
+
+
+class GateRecorder:
+    """``moe.sharded_moe.topkgating_sparse`` wrapped while in use
+    (``moe_mlp_block`` looks it up at each call): every call's output, and
+    on the device without a sync the real tokens' assignments and drops
+    under the current ``label``. With ``forced`` (another run's outputs,
+    call by call) each call returns the forced output instead, after
+    counting the assignments its own gate would route to another expert
+    (or drop in one run only)."""
+
+    def __init__(self, forced=None):
+        self.label = None
+        self.outputs = []
+        self.assigned = {}
+        self.dropped = {}
+        self.forced = forced
+        self.flip_calls = self.flips = 0
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import sharded_moe
+
+        self._module = sharded_moe
+        self._gate = gate = sharded_moe.topkgating_sparse
+
+        def recording(logits, *args, valid=None, **kw):
+            out = gate(logits, *args, valid=valid, **kw)
+            if self.forced is not None:
+                f = self.forced[len(self.outputs)]
+                # a slot's position in its expert does not change the
+                # output: compare experts, E standing for a drop
+                n = int((out.slot // out.capacity
+                         != f.slot // f.capacity).sum())
+                self.flip_calls += n > 0
+                self.flips += n
+                out = f
+            self.outputs.append(out)
+            trash = out.slot == logits.shape[1] * out.capacity
+            for tally, n in ((self.assigned, valid.sum() * out.slot.shape[1]),
+                             (self.dropped, (trash & valid[:, None]).sum())):
+                tally[self.label] = tally.get(self.label, 0) + n
+            return out
+
+        sharded_moe.topkgating_sparse = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._module.topkgating_sparse = self._gate
+
+
+def record_schedule(eng, gates):
+    """Wrap ``eng.put`` and ``eng.decode_batch_async`` (instance
+    attributes, which ``generate``'s batcher calls) → the list of the
+    forwards they run in order: ``("put", uids, chunks, logits)`` and
+    ``("window", uids, seeds, steps, DecodeWindow)``; ``gates.label``
+    follows. ``del eng.put, eng.decode_batch_async`` restores them."""
+    events = []
+    put, window = eng.put, eng.decode_batch_async
+
+    def rec_put(uids, chunks):
+        gates.label = "put"
+        logits = put(uids, chunks)
+        events.append(("put", list(uids), [[int(t) for t in c]
+                                           for c in chunks], logits))
+        return logits
+
+    def rec_window(uids, seeds, steps, *args, **kw):
+        gates.label = "window"
+        w = window(uids, seeds, steps, *args, **kw)
+        events.append(("window", list(uids), [int(t) for t in seeds], steps,
+                       w))
+        return w
+
+    eng.put, eng.decode_batch_async = rec_put, rec_window
+    return events
+
+
+def moe_replay(torch, model, events, attn_impl):
+    """Teacher-force ``generate``'s recorded schedule on a fresh engine in
+    the same batches: each put as it was, each decode window's step as one
+    ``verify_mode`` forward of the window's rows in its order and seq
+    bucket (K6 where the window ran K7). Routing depends on the batch
+    (capacity counts its padded length; earlier tokens take capacity
+    first), so the re-score keeps the batches. → (logits rows ``[V]``,
+    the token each row emitted, its uid), one row per sequence and
+    forward."""
+    from deepspeed_tpu_torch import (InferenceEngineV2,
+                                     RaggedInferenceEngineConfig)
+
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        attn_impl=attn_impl, max_seqs=MOE_MAX_SEQS), device=DEVICE)
+    rows, emitted, owners = [], [], []
+    for ev in events:
+        if ev[0] == "put":
+            _, uids, chunks, logits = ev
+            rows += list(eng.put(uids, chunks))
+            emitted += [int(t) for t in logits.argmax(-1)]
+            owners += uids
+            continue
+        _, uids, seeds, steps, window = ev
+        toks = window.tokens()
+        s_b = eng._seq_bucket(len(uids))
+        prev = seeds
+        for s in range(steps):
+            rows += list(forced_logits(torch, eng, uids,
+                                       [[t] for t in prev], (s_b, s_b)))
+            prev = [int(t) for t in toks[s]]
+            emitted += prev
+            owners += uids
+    eng.flush(sorted(set(owners)))
+    del eng
+    _free(torch)
+    return torch.stack(rows), emitted, owners
+
+
+def moe_undropped_gate(torch, logits, k, cf, valid):
+    """A planted fault: ``topkgating_sparse`` with the drop mask left out,
+    so an assignment past capacity keeps slot ``idx*C + pos`` and lands in
+    the next expert's rows (the last expert's overflow in the trash row).
+    → (slots, gate values)."""
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+
+    S, E = logits.shape
+    C = sm._capacity(S * k, E, cf, 4)
+    vals, idx = sm._top_k(torch.softmax(logits, 1), k)
+    vals = vals / vals.sum(1, keepdim=True)
+    counts = torch.zeros(E)
+    slots, gv = [], []
+    for c in range(k):
+        mask = sm._one_hot(idx[:, c], E) * valid.float()[:, None]
+        pos = torch.cumsum(mask, 0) - mask + counts
+        counts = counts + mask.sum(0)
+        slot = idx[:, c] * C + (pos * mask).sum(1).long()
+        kept = valid & (slot < E * C)
+        slots.append(torch.where(kept, slot, E * C))
+        gv.append(torch.where(kept, vals[:, c], 0.0))
+    return torch.stack(slots, 1).int(), torch.stack(gv, 1)
+
+
+def moe_routing_check(torch, model, cf):
+    """Layer 0 of the served model at full width on 64 flat tokens, the
+    last 8 padding: the card's gate (router product, softmax, stable top-k,
+    capacity) against the CPU's on the same logits, also with planted
+    ties; the card's bf16 block against its float32 CPU run from the
+    card's slots within ``MOE_LIMIT``; the undropped-gate fault read
+    against the same limit. → numbers."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+
+    lw = model.layers
+    lp = {n: {"kernel": getattr(lw, n).kernel[0]}
+          for n in ("router", "gate_proj", "up_proj", "down_proj")}
+    E = lp["router"]["kernel"].shape[1]
+    T, D = MOE_ROUTE_TOKENS, lp["router"]["kernel"].shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    h = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    valid = torch.arange(T, device=DEVICE) < T - MOE_ROUTE_PAD
+    logits = sm._f32_matmul(h, lp["router"]["kernel"])
+    tied = logits.clone()
+    tied[:3] = torch.tensor([[0.0] * 8, [0, 1, 1, .5, 0, 0, 0, 0],
+                             [2, 1, 0, 1, 1, 0, 0, 0]], device=DEVICE)[:, :E]
+    out = {"capacity_factor": cf}
+    for tag, lg in (("router logits", logits), ("planted ties", tied)):
+        card = sm.topkgating_sparse(lg, 2, cf, valid=valid)
+        cpu = sm.topkgating_sparse(lg.cpu(), 2, cf, valid=valid.cpu())
+        ulps = _ulps(torch, card.gate_val.cpu(), cpu.gate_val)
+        check(card.capacity == cpu.capacity
+              and torch.equal(card.slot.cpu(), cpu.slot)
+              and torch.equal(card.exp_counts.cpu(), cpu.exp_counts),
+              f"MoE gate at cf {cf} ({tag}): the card's slots or counts "
+              f"differ from the CPU's")
+        check(ulps <= MOE_GATE_ULPS,
+              f"MoE gate at cf {cf} ({tag}): gate values {ulps} float32 "
+              f"ulps from the CPU's (> {MOE_GATE_ULPS})")
+        out[f"gate_value_ulps ({tag})"] = ulps
+    C = card.capacity
+    gate = sm.topkgating_sparse(logits, 2, cf, valid=valid)
+    dropped = int(((gate.slot == E * C) & valid[:, None]).sum())
+    got, _ = sm.moe_mlp_block(lp, h, k=2, capacity_factor=cf, valid=valid)
+
+    W = {n: lp[n]["kernel"].cpu().float()
+         for n in ("gate_proj", "up_proj", "down_proj")}
+    hc = h.cpu().float()
+
+    def block_f32(slot, gv):
+        disp = sm.dispatch_sparse(slot, hc, E, C, torch.float32)
+        a = F.silu(torch.bmm(disp, W["gate_proj"])) * \
+            torch.bmm(disp, W["up_proj"])
+        eo = torch.bmm(a, W["down_proj"])
+        return sm.combine_sparse(slot, gv, eo, torch.float32), a, eo
+
+    slot, gv = gate.slot.cpu(), gate.gate_val.cpu()
+    ref, a, eo = block_f32(slot, gv)
+    spread = sm.combine_sparse(slot, gv.square(), torch.bmm(
+        a.square(), W["down_proj"].square()), torch.float32).sqrt()
+    terms = sm.combine_sparse(slot, gv.abs(), eo.abs(), torch.float32)
+    gotc = got.float().cpu()
+    limit = (2.0 ** -8 * (gotc.abs() + ref.abs() + terms)
+             + MOE_SIGMAS * 2.0 ** -8 * spread).clamp_min(
+                 torch.finfo(torch.float32).tiny)
+    worst = float(((gotc - ref).abs() / limit).max())
+    fslot, fgv = moe_undropped_gate(torch, logits.cpu(), 2, cf, valid.cpu())
+    ferr = (block_f32(fslot, fgv)[0] - ref).abs()
+    # where both of a token's assignments were dropped the output is 0
+    # and so is its limit: the fault's reading there is infinite, so it
+    # is read on the other entries and those rows are counted
+    live = limit > torch.finfo(torch.float32).tiny
+    fault = float((ferr / limit)[live].max())
+    filled = int(((ferr > 0) & ~live).any(1).sum())
+    out.update(capacity=C, dropped=dropped,
+               assignments=2 * (T - MOE_ROUTE_PAD),
+               block_max_abs_err=float((gotc - ref).abs().max()),
+               block_err_over_limit=worst, fault_over_limit=fault,
+               fault_filled_zero_rows=filled, limit=MOE_LIMIT)
+    log(f"MoE routing at cf {cf}: C {C}, {dropped} of "
+        f"{out['assignments']} assignments dropped; gates equal to the "
+        f"CPU's (values within {out['gate_value_ulps (router logits)']:.0f}"
+        f" and {out['gate_value_ulps (planted ties)']:.0f} ulps with "
+        f"planted ties); block max abs err {out['block_max_abs_err']:.3e}, "
+        f"{worst:.3f} x the limit; planted fault (drop mask left out) "
+        f"{fault:.1f} x the limit, and {filled} all-dropped rows filled")
+    check(worst <= 1.0, f"MoE block at cf {cf}: {worst:.3f} x the limit "
+                        f"({MOE_LIMIT})")
+    if dropped:
+        check(fault > 1.0 or filled,
+              f"MoE block at cf {cf}: the limit would pass a planted fault "
+              f"(drop mask left out, {fault:.3f} x)")
+    del W, hc, a, eo, got
+    return out
+
+
+def phase_moe_serving(torch, ops):
+    """Mixtral-8x7B widths, ``MIXTRAL_LAYERS`` of 32 layers, random bf16
+    weights from the seed with the router float32, served by the default
+    engine (cf 2.0, page 64, max_ctx 2048, ``MOE_MAX_SEQS``): the routing
+    check at cf 2.0 and 0.5 (``moe_routing_check``), ``generate`` on 8
+    prompts of 128-1024 tokens, ``MOE_NEW`` new tokens each (one untimed
+    run with the schedule and the gates recorded, then ``REPEATS`` timed:
+    K6 and K7 must launch), dropped assignments per put and per decode
+    step, the decode roofline of the timed windows, and every emitted
+    token within ``SPEC_MARGIN`` of the argmax of a teacher-forced
+    re-score in the same batches (``moe_replay``; the margin from the
+    paged and gather re-scores, as ``spec_content_check`` sets it)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import (CausalLM, InferenceEngineV2,
+                                     RaggedInferenceEngineConfig,
+                                     TransformerConfig)
+    from deepspeed_tpu_torch.models.transformer import (init_params,
+                                                        param_shapes)
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(TransformerConfig.mixtral_8x7b(),
+                              num_layers=MIXTRAL_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = CausalLM(cfg, init_params(cfg, gen, torch.bfloat16, DEVICE))
+    torch.cuda.synchronize()
+    shapes = param_shapes(cfg)
+    per_layer = {n: math.prod(s[1:]) for n, s in shapes.items()
+                 if n.startswith("layers.")}
+    experts = sum(v for n, v in per_layer.items() if "_proj" in n
+                  and len(shapes[n]) == 4)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    log(f"mixtral_8x7b: {cfg.num_layers} of 32 layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_experts} experts top-"
+        f"{cfg.moe_top_k} of FFN {cfg.intermediate_size}, {cfg.num_heads} "
+        f"heads on {cfg.num_kv_heads} KV heads, vocab {cfg.vocab_size}; a "
+        f"layer {sum(per_layer.values()) / 1e6:.1f} M params ({experts / 1e6:.1f}"
+        f" M of experts), embedding and head "
+        f"{2 * cfg.vocab_size * cfg.hidden_size / 1e6:.1f} M; weights "
+        f"{weight_bytes / 1e9:.2f} GB (router "
+        f"{model.layers.router.kernel.dtype}) of {card_bytes / 1e9:.1f} GB; "
+        f"{CARD}")
+    check(model.layers.router.kernel.dtype == torch.float32,
+          "the MoE router is not float32")
+    routing = [moe_routing_check(torch, model, cf) for cf in MOE_ROUTE_CFS]
+    check(routing[-1]["dropped"] > 0,
+          f"the routing check at cf {MOE_ROUTE_CFS[-1]} dropped nothing: "
+          f"its planted fault cannot show")
+
+    rng = np.random.default_rng(SEED)
+    prompt_lens = [128, 256, 384, 512, 640, 768, 896, 1024]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in prompt_lens]
+    engine = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        max_seqs=MOE_MAX_SEQS), device=DEVICE)
+    check(model.layers.router.kernel.dtype == torch.float32,
+          "the engine cast the MoE router")
+    pool_bytes = engine.kv.mem_bytes()
+    log(f"MoE engine: cf {cfg.moe_capacity_factor}, KV pool "
+        f"{pool_bytes / 1e9:.2f} GB ({engine.kv.config.num_blocks} blocks "
+        f"of {engine.config.block_size}); weights as counted "
+        f"{engine._param_bytes / 1e9:.3f} GB")
+    log("MoE warm-up (untimed; schedule and gates recorded):")
+    with GateRecorder() as gates:
+        events = record_schedule(engine, gates)
+        first_out, launches, first = _run_generate(
+            torch, ops, engine, prompts, MOE_NEW, cfg.vocab_size)
+        del engine.put, engine.decode_batch_async
+    n_puts = sum(ev[0] == "put" for ev in events)
+    n_steps = sum(ev[3] for ev in events if ev[0] == "window")
+    dropped = {k: int(v) for k, v in gates.dropped.items()}
+    assigned = {k: int(v) for k, v in gates.assigned.items()}
+    drops = {"put_forwards": n_puts, "decode_steps": n_steps,
+             "per_put": dropped.get("put", 0) / max(n_puts, 1),
+             "per_decode_step": dropped.get("window", 0) / max(n_steps, 1),
+             "share_put": dropped.get("put", 0) / max(assigned.get("put", 0),
+                                                      1),
+             "share_decode": dropped.get("window", 0) / max(
+                 assigned.get("window", 0), 1),
+             "layers": cfg.num_layers}
+    log(f"MoE dropped assignments (all {cfg.num_layers} layers): "
+        f"{drops['per_put']:.2f} a put ({n_puts} puts; "
+        f"{100 * drops['share_put']:.2f}% of their real tokens' "
+        f"assignments), {drops['per_decode_step']:.2f} a decode step "
+        f"({n_steps} steps; {100 * drops['share_decode']:.2f}%)")
+
+    reports = []
+    record = engine._record_decode_roofline
+
+    def keep(window):
+        record(window)
+        reports.append(engine.last_decode_roofline)
+
+    engine._record_decode_roofline = keep
+    runs, same = [], True
+    for i in range(REPEATS):
+        log(f"MoE timed run {i + 1}/{REPEATS}:")
+        out, n, r = _run_generate(torch, ops, engine, prompts, MOE_NEW,
+                                  cfg.vocab_size)
+        check(n == launches, "MoE: launch counts changed between runs")
+        runs.append(r)
+        same = same and out == first_out
+    del engine._record_decode_roofline
+    profiled = moe_decode_profile(torch, engine, prompts)
+    del engine
+    _free(torch)
+    clean = [r for r in reports
+             if r is not None and not r["compile_polluted"]]
+    big = max(r["steps"] for r in clean)
+    roof = [r["hbm_pct_peak"] for r in clean if r["steps"] == big]
+    res = {k: {"median": _median([r[k] for r in runs]),
+               "min": min(r[k] for r in runs),
+               "max": max(r[k] for r in runs)}
+           for k in ("generate_s", "prefill_tok_per_s", "decode_tok_per_s")}
+    res.update(layers=cfg.num_layers, params=model.num_params(),
+               weight_bytes=weight_bytes, pool_bytes=pool_bytes,
+               launches_per_generate=launches, first_run=first,
+               timed_tokens_equal_warmup=same, drops=drops, routing=routing,
+               decode_profile=profiled,
+               decode_roofline={
+                   "windows": len(clean), "largest_steps": big,
+                   "n_seqs": clean[-1]["n_seqs"],
+                   "hbm_pct_peak_median": _median(roof),
+                   "hbm_pct_peak_min": min(roof),
+                   "hbm_pct_peak_max": max(roof),
+                   "param_bytes_share": clean[-1]["kernels"]["param_stream"][
+                       "pct_of_window_bytes"]})
+    log(f"MoE median of {REPEATS}: prefill "
+        f"{res['prefill_tok_per_s']['median']:.1f} tok/s "
+        f"[{res['prefill_tok_per_s']['min']:.1f}, "
+        f"{res['prefill_tok_per_s']['max']:.1f}], decode "
+        f"{res['decode_tok_per_s']['median']:.1f} tok/s "
+        f"[{res['decode_tok_per_s']['min']:.1f}, "
+        f"{res['decode_tok_per_s']['max']:.1f}]; K6 {launches['ragged_paged_attention']}"
+        f" and K7 {launches['decode_paged_attention']} launches a generate; "
+        f"decode roofline of the {len(roof)} {big}-step windows "
+        f"{_median(roof):.1f}% of {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+        f"[{min(roof):.1f}, {max(roof):.1f}]; timed tokens equal to the "
+        f"warm-up's: {same}; {CARD}")
+
+    res["content"] = moe_content_check(torch, model, events, gates.outputs)
+    del model, events, gates
+    _free(torch)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"MoE serving: {res['phase_s']:.1f} s; {CARD}")
+    return res
+
+
+def moe_decode_profile(torch, eng, prompts):
+    """One decode window of the prompts, 8 steps a sequence, under
+    ``torch.profiler``: device time by kernel group and the device's
+    idle share (``device_breakdown``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    uids = list(range(len(prompts)))
+    seeds = [int(t) for t in spec_prefill(eng, uids, prompts).argmax(-1)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decode_batch(uids, seeds, 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.flush(uids)
+    return device_breakdown(prof, wall, f"MoE decode window of {len(uids)} "
+                            f"sequences x 8 steps, profiled", CARD)
+
+
+def moe_content_check(torch, model, events, routed):
+    """Every token the warm-up ``generate`` emitted within ``SPEC_MARGIN``
+    of the argmax of its teacher-forced re-score (``moe_replay``, paged);
+    ``SPEC_MARGIN`` is ``SPEC_MARGIN_FACTOR`` x the largest |paged -
+    gather| logit of the two re-scores, at most ``SPEC_MARGIN_CAP``, the
+    re-scores within ``SERVING_LOGITS_REL`` a sequence (the rule of
+    ``spec_content_check``).
+
+    The re-scores route by ``generate``'s gate outputs (``routed``, call
+    by call). A free re-score's router sees other bf16 roundings of its
+    input (K6 for K7, gather for paged), and at cf 2.0 one near-tie flip
+    moves every later token in that expert's capacity queue: on the H100
+    263 of 1,312 gate calls of a free paged re-score routed otherwise than
+    ``generate`` and the free paged and gather re-scores were 0.17 apart
+    in rel l2. The routing itself is held by ``moe_routing_check``; the
+    assignments each free gate would route otherwise are printed."""
+    rows, flips = {}, {}
+    for impl in ("gather", "paged"):
+        with GateRecorder(forced=routed) as g:
+            rows[impl], emitted, owners = moe_replay(torch, model, events,
+                                                     impl)
+        check(len(g.outputs) == len(routed),
+              f"MoE re-score ({impl}) made {len(g.outputs)} gate calls, "
+              f"generate {len(routed)}")
+        flips[impl] = {"gate_calls": len(routed),
+                       "calls_routed_otherwise": g.flip_calls,
+                       "assignments_routed_otherwise": g.flips}
+    check(bool(torch.isfinite(rows["paged"]).all())
+          and bool(torch.isfinite(rows["gather"]).all()),
+          "MoE re-score logits not finite")
+    owner = torch.tensor(owners, device=rows["paged"].device)
+    diff = float((rows["paged"] - rows["gather"]).abs().max())
+    rel = max(rel_l2(torch, rows["paged"][owner == u],
+                     rows["gather"][owner == u]) for u in set(owners))
+    margin = SPEC_MARGIN_FACTOR * diff
+    gaps = gaps_of(torch, rows["paged"], emitted)
+    out = {"positions": int(gaps.numel()), "max_gap": float(gaps.max()),
+           "off_argmax_share": float((gaps > 0).float().mean()),
+           "paged_vs_gather_max_abs": diff, "paged_vs_gather_rel_l2": rel,
+           "spec_margin": margin, "free_gate_vs_generate": flips}
+    log(f"MoE content check (re-scores routed as generate): "
+        f"{out['positions']} positions; paged vs gather max abs "
+        f"{diff:.4e}, rel l2 {rel:.3e}; SPEC_MARGIN {margin:.4e}; max gap "
+        f"{out['max_gap']:.4e} ({out['max_gap'] / max(margin, 1e-30):.2f} "
+        f"x), off the argmax {out['off_argmax_share']:.4f}; a free gate "
+        f"would route otherwise: {flips}")
+    check(margin > 0, "MoE paged and gather re-scores are bit-identical: "
+                      "the margin rule has no difference to scale")
+    check(rel <= SERVING_LOGITS_REL,
+          f"MoE content check: paged vs gather re-scores differ: rel l2 "
+          f"{rel:.3e} > {SERVING_LOGITS_REL}")
+    check(margin <= SPEC_MARGIN_CAP,
+          f"MoE content check: SPEC_MARGIN {margin:.4e} > the cap "
+          f"{SPEC_MARGIN_CAP}")
+    check(out["max_gap"] <= margin,
+          f"MoE content check: an emitted token lies {out['max_gap']:.4e} "
+          f"below the re-score's argmax (> SPEC_MARGIN {margin:.4e})")
+    del rows, gaps
+    return out
+
+
 def quant_kernel_entries(rows, launches, errs):
     """The ``kernels`` JSON entries of K8a, K8b, K9a and K10a."""
     out = []
@@ -6357,6 +6879,7 @@ def main():
         del model
         _free(torch)
         families = phase_families(torch, ops)
+        moe_serving = phase_moe_serving(torch, ops)
         train_launches, training = phase_train_main_path(torch)
         fa_launches, fused_adam = phase_fused_adam_main_path(torch, training)
         others = phase_other_fused(torch, fused_adam["losses"][0])
@@ -6403,6 +6926,7 @@ def main():
                                      "handoff": handoff}}))
     log(json.dumps({"prefix_serving": prefix_serving}))
     log(json.dumps({"speculative": speculative, "families": families}))
+    log(json.dumps({"moe_serving": moe_serving}))
     log(json.dumps({"serving_lifecycle": serving_lifecycle}))
     log(json.dumps({"data_parallel_world": world,
                     "matmul_planted_faults_over_limit": planted}))

@@ -46,8 +46,13 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
 
     Not offered: a client ``optimizer`` (ROADMAP Queue 3.2: the optimizer
     comes from the config's ``optimizer`` block), and ``training_data`` /
-    ``collate_fn`` (ROADMAP M10). → ``(engine, optimizer, None,
+    ``collate_fn`` (ROADMAP M10), and a MoE model (``num_experts > 1``:
+    MoE training, ROADMAP M9). → ``(engine, optimizer, None,
     lr_scheduler)``."""
+    if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
+        raise NotImplementedError(
+            "MoE training is not ported yet (ROADMAP M9); a MoE model "
+            "serves through InferenceEngineV2")
     if optimizer is not None:
         raise NotImplementedError(
             "a client optimizer is not ported yet (ROADMAP Queue 3.2): name "

@@ -15,6 +15,7 @@ from typing import Optional
 
 from ...checkpoint.ds_to_universal import INDEX_FILE, load_universal
 from ...checkpoint.universal.layout import param_name
+from ...models.transformer import leaf_dtype
 from ...utils.logging import logger
 from .engine_v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 
@@ -35,7 +36,8 @@ def build_engine_from_ds_checkpoint(ckpt_dir: str, model,
     package's ``convert`` wrote) is read itself. A tag is verified
     against its integrity manifest first. Only the ``param`` leaves are
     read, cast to the serving dtype: ``dtype``, which a new engine
-    config takes, or the given ``engine_config``'s."""
+    config takes, or the given ``engine_config``'s (a MoE router stays
+    float32)."""
     from ...runtime.checkpoint_engine.numpy_checkpoint_engine import \
         NumpyCheckpointEngine
     from ...runtime.fault.manifest import verify_checkpoint
@@ -54,8 +56,10 @@ def build_engine_from_ds_checkpoint(ckpt_dir: str, model,
         max_ctx=model.config.max_seq_len,
         **({} if dtype is None else {"dtype": dtype}))
     dtype = config.dtype
-    state = {param_name(name): t.to(dtype)
-             for name, t in load_universal(src).items()}
+    state = {}
+    for name, t in load_universal(src).items():
+        name = param_name(name)
+        state[name] = t.to(leaf_dtype(name, dtype))
     served = type(model)(model.config, state)
     logger.info(f"serving {src}: {served.num_params() / 1e6:.0f} M params "
                 f"in {dtype}")

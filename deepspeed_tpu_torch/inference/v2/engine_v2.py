@@ -49,7 +49,7 @@ import torch
 
 from ...accelerator import get_accelerator
 from ...models.families import ArchConfig
-from ...models.transformer import CausalLM, TransformerConfig
+from ...models.transformer import CausalLM, TransformerConfig, leaf_dtype
 from ...runtime.fault.injection import InjectedNaN, inject
 from ...utils.logging import logger
 from .model_runner import (build_decode_loop, build_ragged_step,
@@ -130,7 +130,8 @@ class InferenceEngineV2:
 
     ``device=None`` means CUDA and raises when CUDA is absent; the CPU runs
     only when named (``device="cpu"``). The model's parameters are moved to
-    the device and cast to ``config.dtype`` in place."""
+    the device and cast to ``config.dtype`` in place, a MoE router kept
+    float32."""
 
     def __init__(self, model: CausalLM,
                  config: Optional[RaggedInferenceEngineConfig] = None,
@@ -186,7 +187,11 @@ class InferenceEngineV2:
             if self.state_manager.prefix_cache is not None:
                 self.state_manager.prefix_cache.spill_fn = \
                     self.kv_swap.spill_prefix_node
-        model.to(device=self.device, dtype=c.dtype)
+        # router leaves stay float32 (``transformer.leaf_dtype``), as the
+        # JAX engine keeps them: a bf16 round trip flips top-k selection
+        model.to(device=self.device)
+        for name, p in model.named_parameters():
+            p.data = p.data.to(leaf_dtype(name, c.dtype))
         self._param_bytes = sum(p.numel() * p.element_size()
                                 for p in model.parameters())
         #: the newest drained decode window's HBM roofline report

@@ -197,7 +197,9 @@ def ragged_forward(model, kv_pages: torch.Tensor, packed: torch.Tensor,
     with OPT's offset, ALiBi in the kernels, Bloom's and Falcon's scaled
     form, partial and interleaved rotary, parallel attention, dual
     LayerNorms, LayerNorm with bias, gelu (tanh and erf), relu and SwiGLU
-    MLPs, the lm-head bias) over one flat-token batch.
+    MLPs, the lm-head bias) over one flat-token batch. A Mixtral config
+    routes each token's MLP over the experts (``moe_mlp_block``, sparse
+    dispatch), padding excluded from expert capacity.
 
     → last-token logits [max_seqs, vocab] float32, or with ``verify_mode``
     the logits of every flat position [max_q, vocab] (the verify pass
@@ -215,6 +217,9 @@ def ragged_forward(model, kv_pages: torch.Tensor, packed: torch.Tensor,
     trash_page = kv_pages.shape[0] - 1
     lw = model.layers
     ln1, ln2 = _layer_norms(lw)
+    # the batch's real tokens (padding carries the pad-page sentinel): a
+    # routed MLP gives padding no expert capacity
+    valid = page_of < num_blocks
 
     x = model.embed.embedding[tokens.long()]                  # [T, D]
     if cfg.pos == "learned":
@@ -246,10 +251,10 @@ def ragged_forward(model, kv_pages: torch.Tensor, packed: torch.Tensor,
         attn_out = linear(o.to(x.dtype), lw.o_proj, layer)
         if cfg.parallel_attn:
             h_mlp = norm(x, ln2, cfg, layer) if cfg.dual_ln else h_attn
-            x = x + attn_out + mlp(h_mlp, lw, layer, cfg)
+            x = x + attn_out + mlp(h_mlp, lw, layer, cfg, valid)
         else:
             x = x + attn_out
-            x = x + mlp(norm(x, ln2, cfg, layer), lw, layer, cfg)
+            x = x + mlp(norm(x, ln2, cfg, layer), lw, layer, cfg, valid)
 
     x = norm(x, model.norm_f, cfg)
     last = x if verify_mode else x[batch["logit_idx"].long()]

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from .families import ArchConfig, universal_param_shapes
-from .transformer import TransformerConfig, param_shapes
+from .transformer import TransformerConfig, is_router, param_shapes
 
 
 def _is_q(node: Any) -> bool:
@@ -43,8 +43,9 @@ def params_from_numpy(tree: Mapping,
                       cfg: Union[TransformerConfig, ArchConfig]
                       ) -> Dict[str, torch.Tensor]:
     """Nested numpy tree → ``CausalLM`` (or, for an ``ArchConfig``,
-    ``UniversalCausalLM``) state dict (CPU tensors in the arrays' dtype).
-    Raises ``ValueError`` on a missing, extra or misshaped leaf."""
+    ``UniversalCausalLM``) state dict (CPU tensors in the arrays' dtype;
+    a MoE router float32 whatever its array's). Raises ``ValueError`` on
+    a missing, extra or misshaped leaf."""
     flat = _flatten(tree)
     expected = universal_param_shapes(cfg) if isinstance(cfg, ArchConfig) \
         else param_shapes(cfg)
@@ -58,7 +59,8 @@ def params_from_numpy(tree: Mapping,
         arr = np.asarray(flat[name])
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape} != {shape}")
-        state[name] = torch.from_numpy(np.array(arr, order="C"))
+        t = _tensor(arr)
+        state[name] = t.float() if is_router(name) else t
     return state
 
 

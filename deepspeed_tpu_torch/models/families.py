@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..inference.v2.kernels.ragged_ops import alibi_slopes
+from ..moe.sharded_moe import moe_mlp_block
 from .transformer import (TransformerConfig, init_from_shapes,
                           register_params, rms_norm)
 
@@ -66,6 +67,11 @@ class ArchConfig:
     embed_layernorm: bool = False   # bloom
     tie_embeddings: bool = True
     lm_head_bias: bool = False      # gptj/phi carry an lm-head bias
+    #: Mixtral (a ``TransformerConfig`` with ``num_experts > 1``, through
+    #: :func:`arch_of`): the SwiGLU MLP routed over stacked experts
+    num_experts: int = 1
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
 
     @property
     def head_dim(self) -> int:
@@ -81,7 +87,7 @@ def arch_of(cfg) -> ArchConfig:
     """``cfg`` as an :class:`ArchConfig`: a ``TransformerConfig`` is the
     Llama family (RMSNorm, full neox RoPE, SwiGLU, biases on q/k/v only
     with ``attn_bias``), whose ``attn_norm``/``mlp_norm`` stand where the
-    families have ``ln1``/``ln2``."""
+    families have ``ln1``/``ln2``; its MoE fields carry the routed MLP."""
     if isinstance(cfg, ArchConfig):
         return cfg
     if not isinstance(cfg, TransformerConfig):
@@ -94,12 +100,17 @@ def arch_of(cfg) -> ArchConfig:
         max_seq_len=cfg.max_seq_len, pos="rope", rope_theta=cfg.rope_theta,
         norm="rmsnorm", norm_eps=cfg.norm_eps, mlp="silu_glu",
         qkv_bias=cfg.attn_bias, out_bias=False,
-        tie_embeddings=cfg.tie_embeddings)
+        tie_embeddings=cfg.tie_embeddings, num_experts=cfg.num_experts,
+        moe_top_k=cfg.moe_top_k,
+        moe_capacity_factor=cfg.moe_capacity_factor)
 
 
 def universal_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Dotted parameter name → shape, the JAX ``init_universal_params``
     tree."""
+    if cfg.num_experts > 1:
+        raise ValueError("the universal families have no MoE; a Mixtral "
+                         "model is a TransformerConfig with num_experts > 1")
     L, D, Fd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes: Dict[str, Tuple[int, ...]] = {"embed.embedding":
@@ -232,8 +243,19 @@ def linear(h: torch.Tensor, node: nn.Module,
     return y
 
 
-def mlp(h: torch.Tensor, lw: nn.Module, layer: int,
-        cfg: ArchConfig) -> torch.Tensor:
+def mlp(h: torch.Tensor, lw: nn.Module, layer: int, cfg: ArchConfig,
+        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer ``layer``'s MLP on ``h [T, D]``. With ``cfg.num_experts >
+    1`` it is the routed expert SwiGLU (``moe_mlp_block``, sparse
+    dispatch); ``valid [T]`` marks the batch's real tokens, so that
+    padding takes no expert capacity."""
+    if cfg.num_experts > 1:
+        lp = {name: {"kernel": getattr(lw, name).kernel[layer]}
+              for name in ("router", "gate_proj", "up_proj", "down_proj")}
+        out, _ = moe_mlp_block(lp, h, k=cfg.moe_top_k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               dispatch_impl="sparse", valid=valid)
+        return out
     if cfg.mlp == "silu_glu":
         gate = F.silu(linear(h, lw.gate_proj, layer))
         return linear(gate * linear(h, lw.up_proj, layer), lw.down_proj,

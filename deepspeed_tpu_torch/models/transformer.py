@@ -12,8 +12,12 @@ converts by name with no reshuffle (``models/convert.py``):
     ``embed.embedding``, ``layers.q_proj.kernel``, ``norm_f.scale``,
     ``lm_head.kernel``, ...
 
-The dense ``TransformerConfig`` path only; MoE fields are kept so configs
-round-trip, but ``CausalLM`` refuses ``num_experts > 1``.
+A config with ``num_experts > 1`` is the Mixtral family: every layer's
+MLP is a top-k routed SwiGLU over stacked experts (``layers.router.kernel
+[L, D, E]``, float32 whatever the other leaves' dtype, and
+``layers.{gate,up}_proj.kernel [L, E, D, F]``, ``layers.down_proj.kernel
+[L, E, F, D]``), served through ``inference/v2/model_runner.ragged_forward``
+(``moe/sharded_moe.moe_mlp_block``); training it is ROADMAP M9.
 
 ``forward`` walks the layers in a Python loop over one ``torch.unbind`` of
 each stacked tensor per call, so the backward builds each stacked gradient
@@ -82,6 +86,22 @@ class TransformerConfig:
                                  max_seq_len=128, **kw)
 
     @staticmethod
+    def tiny_moe(**kw):
+        return TransformerConfig(vocab_size=256, hidden_size=64,
+                                 intermediate_size=128, num_layers=2,
+                                 num_heads=4, num_kv_heads=2,
+                                 max_seq_len=128, num_experts=4, moe_top_k=2,
+                                 **kw)
+
+    @staticmethod
+    def mixtral_8x7b(**kw):
+        return TransformerConfig(vocab_size=32000, hidden_size=4096,
+                                 intermediate_size=14336, num_layers=32,
+                                 num_heads=32, num_kv_heads=8,
+                                 max_seq_len=32768, rope_theta=1e6,
+                                 num_experts=8, moe_top_k=2, **kw)
+
+    @staticmethod
     def llama3_8b(**kw):
         return TransformerConfig(vocab_size=128256, hidden_size=4096,
                                  intermediate_size=14336, num_layers=32,
@@ -91,9 +111,6 @@ class TransformerConfig:
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """Dotted parameter name → shape, the JAX ``init_params`` tree."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "MoE serving is not ported yet (ROADMAP M7.9)")
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = {
@@ -109,6 +126,12 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         "layers.down_proj.kernel": (L, F, D),
         "norm_f.scale": (D,),
     }
+    if cfg.num_experts > 1:
+        E = cfg.num_experts
+        shapes.update({"layers.router.kernel": (L, D, E),
+                       "layers.gate_proj.kernel": (L, E, D, F),
+                       "layers.up_proj.kernel": (L, E, D, F),
+                       "layers.down_proj.kernel": (L, E, F, D)})
     if cfg.attn_bias:
         shapes["layers.q_proj.bias"] = (L, H * hd)
         shapes["layers.k_proj.bias"] = (L, KV * hd)
@@ -118,13 +141,28 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def is_router(name: str) -> bool:
+    """A MoE router leaf (``layers.router.kernel``): it stays float32
+    whatever dtype the other leaves are served or loaded in, as in the
+    JAX package, since a bf16 round trip flips top-k selection on
+    near-tie tokens."""
+    return "router" in name.split(".")
+
+
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype parameter ``name`` takes when the model is cast to
+    ``dtype``: float32 for a router, else ``dtype``."""
+    return torch.float32 if is_router(name) else dtype
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device=None) -> Dict[str, torch.Tensor]:
     """Random parameters with the JAX package's distributions (normal /
     sqrt(fan_in) kernels, 0.02-scaled embedding, unit norm scales, zero
-    biases) → a ``CausalLM`` state dict. Numbers come from ``generator``,
-    which must live on ``device``; they differ from ``jax.random``'s."""
+    biases; a MoE router float32) → a ``CausalLM`` state dict. Numbers
+    come from ``generator``, which must live on ``device``; they differ
+    from ``jax.random``'s."""
     return init_from_shapes(param_shapes(cfg), generator, dtype, device)
 
 
@@ -134,7 +172,7 @@ def init_from_shapes(shapes: Dict[str, Tuple[int, ...]],
                      device=None) -> Dict[str, torch.Tensor]:
     """Random tensors for dotted parameter names, by name: ``*.scale``
     ones, ``*.bias`` zeros, ``*.embedding`` normal x 0.02, every other
-    (a ``[..., in, out]`` kernel) normal / sqrt(in).
+    (a ``[..., in, out]`` kernel) normal / sqrt(in); a router float32.
 
     Layer tensors are drawn one layer at a time in float32 and cast into
     the stacked tensor, so a full-width model needs one layer of float32
@@ -142,7 +180,7 @@ def init_from_shapes(shapes: Dict[str, Tuple[int, ...]],
     dev = get_accelerator().resolve_device(device)
     out = {}
     for name, shape in shapes.items():
-        t = torch.empty(shape, dtype=dtype, device=dev)
+        t = torch.empty(shape, dtype=leaf_dtype(name, dtype), device=dev)
         if name.endswith(".scale"):
             t.fill_(1.0)
         elif name.endswith(".bias"):
@@ -281,7 +319,8 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     recomputes each layer in the backward (``torch.utils.checkpoint``),
     the ``"nothing_saveable"`` policy; other policies are not ported."""
     if cfg.num_experts > 1:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("MoE training is not ported yet (ROADMAP "
+                                  "M9); MoE serves through InferenceEngineV2")
     if cfg.remat and cfg.remat_policy != "nothing_saveable":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; only "

@@ -82,15 +82,17 @@ SERVING_TIER_MODULES = (
     "inference/v2/server.py",
     "profiling/roofline.py",
     "profiling/serving_roofline.py",
+    "moe/sharded_moe.py",
+    "moe/layer.py",
 )
 
 
 @pytest.mark.parametrize("rel", SERVING_TIER_MODULES)
 def test_serving_tier_modules_stand_alone(rel):
     """The prefix cache, page heat, host tier, KV swap, the fault
-    injector, the lifecycle scheduler, its HTTP server and the rooflines
-    import neither JAX nor the JAX package, not even its stdlib-only
-    ``injection.py``: the port keeps its own copies."""
+    injector, the lifecycle scheduler, its HTTP server, the rooflines and
+    the MoE modules import neither JAX nor the JAX package, not even its
+    stdlib-only ``injection.py``: the port keeps its own copies."""
     path = os.path.join(PKG_DIR, rel)
     mods = list(_imports(path))
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
