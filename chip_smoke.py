@@ -93,6 +93,21 @@ non-zero before the last line is printed:
      ``load_checkpoint``, 2 more steps bitwise equal to the first engine's
      uninterrupted steps 3-4; the directory read back with the port's
      ``load_universal``, then removed;
+     then ZeRO at one device (``phase_zero_offload``, FusedAdam, bf16,
+     remat, 4 x 2048 tokens): stage 0, stage 2, the optimizer state on
+     the host, Twin-Flow 0.5 and ``pipeline_read`` at ZERO_LAYERS, 2 + 5
+     steps each, losses and masters bit for bit with stage 0 (step time,
+     peak memory, pinned bytes, each step's H2D/D2H bytes, milliseconds
+     and GB/s, K5's launches; the counters of K1-K5 set to 0 before the
+     timed steps and read after); a planted fault (one leaf's moments
+     never written back) the bit check must catch; an injected
+     ``offload_prefetch`` failure (one failure, the same losses);
+     ``offload_states``/``reload_states`` on cpu and nvme after step 3,
+     steps 4-7 bit for bit; ZERO_BIG_LAYERS layers (81.7 GB of resident
+     state) with the state on the host, after ``MemAvailable`` is found
+     to hold it, the loss falling; Muon (its Newton-Schulz time a step,
+     one tiny step against the CPU's); a client ``torch.optim.AdamW``
+     with a save/load round trip continuing bit for bit;
  12. time each training kernel beside its bound, its plain version and one
      PyTorch call (SDPA forward and backward; ``F.rms_norm`` plus
      ``torch.matmul``), log the port's whole attention backward (delta, K2
@@ -1758,10 +1773,13 @@ def _optimizer_wrappers():
             "FusedAdagrad": ("fused_adagrad", fad.fused_adagrad_update)}
 
 
-def train_engine(torch, opt_type, layers=TRAIN_LAYERS, seed=SEED):
+def train_engine(torch, opt_type, layers=TRAIN_LAYERS, seed=SEED, zero=None,
+                 client=None):
     """``initialize`` on llama3-8B widths cut to ``layers`` with remat,
     random float32 masters from a seeded generator, bench.py's ds_config
-    with ``opt_type``. → (cfg, model, engine)."""
+    with ``opt_type`` (or the client optimizer factory ``client``) and the
+    ``zero_optimization`` block ``zero`` (stage 0 by default). →
+    (cfg, model, engine)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import CausalLM, TransformerConfig
     from deepspeed_tpu_torch.models.transformer import init_params
@@ -1776,11 +1794,13 @@ def train_engine(torch, opt_type, layers=TRAIN_LAYERS, seed=SEED):
         "optimizer": {"type": opt_type,
                       "params": {"lr": 3e-4, "weight_decay": 0.1}},
         "gradient_clipping": 1.0,
-        "zero_optimization": {"stage": 0},
+        "zero_optimization": zero or {"stage": 0},
         "bf16": {"enabled": True},
     }
+    if client is not None:
+        del ds_config["optimizer"]
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model, config=ds_config, device=DEVICE)
+        model=model, config=ds_config, device=DEVICE, optimizer=client)
     return cfg, model, engine
 
 
@@ -2366,6 +2386,542 @@ def phase_checkpoint(torch):
             "save_s": save_s, "load_s": load_s, "read_s": read_s,
             "losses_first": first, "losses_uninterrupted": straight,
             "losses_resumed": resumed}
+
+
+# --------------------------------------------------------------------- #
+# ZeRO on one device, optimizer offload, offload_states, Muon, a client
+# optimizer
+# --------------------------------------------------------------------- #
+ZERO_LAYERS = 4                    # the variants' depth (1.922 B params)
+ZERO_BIG_LAYERS = 16               # 4.54 B params: 81.7 GB resident
+ZERO_WARMUP, ZERO_TIMED = 2, 5
+ZERO_BIG_WARMUP, ZERO_BIG_TIMED = 1, 3
+ZERO_VARIANTS = (
+    ("stage0", {"stage": 0}),
+    ("stage2", {"stage": 2}),
+    ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
+    ("twin0.5", {"stage": 2, "offload_optimizer": {"device": "cpu",
+                                                   "ratio": 0.5}}),
+    ("cpu_pipeline", {"stage": 2, "offload_optimizer": {
+        "device": "cpu", "pipeline_read": True}}),
+)
+ZERO_FAULT_LEAF = "layers.down_proj.kernel"  # its moments skip write-back
+ZERO_HOST_MARGIN = 16e9            # host bytes the process needs besides
+MUON_STEPS = 3
+#: one card step of Muon on TransformerConfig.tiny() against the CPU's, in
+#: float32: the loss within 1e-5 relative; the masters within a twentieth
+#: of one step (0.05 lr), since the two devices' matmuls sum in other
+#: orders and the Newton-Schulz iteration and Adam's 1/(sqrt(v) + 1e-8)
+#: amplify that (tests/test_torch_muon.py holds the same bound)
+MUON_TINY_LR = 3e-3
+MUON_TINY_STEP_FRACTION = 0.05
+CLIENT_STEPS = 3
+
+
+def _host_masters(torch, engine):
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in engine.params.items()}
+
+
+def _masters_diff(torch, engine, ref):
+    """Names whose masters differ from ``ref`` and the largest |diff|."""
+    names, worst = [], 0.0
+    for n, p in engine.params.items():
+        got = p.detach().cpu()
+        if not torch.equal(got, ref[n]):
+            names.append(n)
+            worst = max(worst, float((got - ref[n]).abs().max()))
+    return names, worst
+
+
+def _skip_write_back(engine, leaf_name):
+    """Plant a fault: the streamed update never writes ``leaf_name``'s
+    updated moments back to host memory."""
+    off = engine._offload
+    ptrs = {t.untyped_storage().data_ptr()
+            for t in off.leaves[leaf_name].host}
+    write_back = off._write_back
+
+    def skipping(stream, host, dev):
+        if host.untyped_storage().data_ptr() in ptrs:
+            return off._event(stream)
+        return write_back(stream, host, dev)
+
+    off._write_back = skipping
+
+
+def _zero_run(torch, name, zero, layers=ZERO_LAYERS, warmup=ZERO_WARMUP,
+              timed=ZERO_TIMED, fault_leaf=None, opt_type="FusedAdam"):
+    """``warmup`` untimed and ``timed`` timed ``train_batch`` steps of one
+    ZeRO configuration, the launch counters set to 0 before the timed
+    steps and read after them. → (engine, result)."""
+    host_before = _mem_available_bytes()
+    t0 = time.perf_counter()
+    cfg, model, engine = train_engine(torch, opt_type, layers, zero=zero)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host_taken = host_before - _mem_available_bytes()
+    if fault_leaf is not None:
+        _skip_write_back(engine, fault_leaf)
+    batch = train_batch_tokens(torch, engine, cfg.vocab_size)
+    losses = [float(engine.train_batch(batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    counters = _train_counters(opt_type)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, copies = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if engine._offload is not None:
+            copies.append(dict(engine._offload.step_stats()))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for n, c in launches.items():
+        check(c > 0, f"{name}: the training path never launched {n}")
+    check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
+    srt = sorted(times)
+    res = {"zero": zero, "layers": layers, "params": model.num_params(),
+           "init_s": init_s, "losses": losses,
+           "step_s": {"median": srt[len(srt) // 2], "min": srt[0],
+                      "max": srt[-1]},
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "pinned_host_gb": (engine._offload.pinned_bytes() / 1e9
+                              if engine._offload is not None else 0.0),
+           "host_mem_available_drop_at_init_gb": host_taken / 1e9,
+           "launches_per_step": {n: c / timed for n, c in launches.items()}}
+    if copies:
+        per = {}
+        for key in ("h2d", "d2h"):
+            nbytes = copies[-1][f"{key}_bytes"]
+            ms = sorted(c[f"{key}_ms"] for c in copies)
+            med = ms[len(ms) // 2]
+            per[key] = {"bytes": nbytes, "ms_median": med,
+                        "gb_per_s": nbytes / med / 1e6}
+        res["copies_per_step"] = per
+        res["ring"] = {"buffers": engine._offload.buffer_count,
+                       "pieces": len(engine._offload.pieces)}
+    if engine._offload_prefetcher is not None:
+        res["prefetch"] = engine._offload_prefetcher.stats()
+    cp = res.get("copies_per_step")
+    log(f"zero {name}: {layers} layers, median step "
+        f"{1e3 * res['step_s']['median']:.1f} ms [{1e3 * srt[0]:.1f}, "
+        f"{1e3 * srt[-1]:.1f}], peak {res['max_memory_allocated_gb']:.2f} "
+        f"GB, pinned {res['pinned_host_gb']:.2f} GB (MemAvailable fell "
+        f"{host_taken / 1e9:.2f} GB at init), K5 a step "
+        f"{res['launches_per_step'].get('fused_adam')}"
+        + (f"; a step H2D {cp['h2d']['bytes'] / 1e9:.2f} GB in "
+           f"{cp['h2d']['ms_median']:.1f} ms ({cp['h2d']['gb_per_s']:.1f} "
+           f"GB/s), D2H {cp['d2h']['bytes'] / 1e9:.2f} GB in "
+           f"{cp['d2h']['ms_median']:.1f} ms ({cp['d2h']['gb_per_s']:.1f} "
+           f"GB/s); ring {res['ring']}" if cp else ""))
+    del model, batch
+    return engine, res
+
+
+def _mem_available_bytes():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("/proc/meminfo has no MemAvailable line")
+
+
+def _offload_states_legs(torch, engine, batch, want, ref_masters, swap_dir):
+    """``offload_states`` after step 3 on cpu (optimizer and masters) and
+    nvme (optimizer), each leg's bytes and seconds; steps 4 and 5, then 6
+    and 7, bit for bit the uninterrupted run's."""
+    legs = {}
+    for step, (device, include) in ((3, ("cpu", ("optimizer", "params"))),
+                                    (4, ("nvme", ("optimizer",)))):
+        nbytes = sum(t.numel() * t.element_size() for what in include
+                     for t in engine._device_groups(what)[0].values())
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.offload_states(include=include, device=device,
+                              nvme_path=swap_dir)
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+        during = torch.cuda.memory_allocated()
+        refused = False
+        try:
+            engine.train_batch(batch)
+        except RuntimeError as e:
+            refused = "reload_states" in str(e)
+        check(refused, f"offload_states({device}): train_batch did not "
+                       f"refuse while the state was away")
+        t0 = time.perf_counter()
+        engine.reload_states()
+        on_s = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        got = float(engine.train_batch(batch))
+        check(got == want[step], f"offload_states({device}): the next "
+              f"loss {got!r} != the uninterrupted run's {want[step]!r}")
+        legs[device] = {"include": list(include), "bytes": nbytes,
+                        "offload_s": off_s, "reload_s": on_s,
+                        "offload_gb_per_s": nbytes / off_s / 1e9,
+                        "reload_gb_per_s": nbytes / on_s / 1e9,
+                        "memory_allocated_gb": {
+                            "before": before / 1e9, "during": during / 1e9,
+                            "after": after / 1e9},
+                        "next_loss": got}
+        log(f"offload_states {device} {include}: {nbytes / 1e9:.2f} GB out "
+            f"in {off_s:.2f} s, back in {on_s:.2f} s; memory_allocated "
+            f"{before / 1e9:.2f} -> {during / 1e9:.2f} -> {after / 1e9:.2f} "
+            f"GB; the next loss {got!r} (uninterrupted {want[step]!r})")
+    got = [float(engine.train_batch(batch)) for _ in range(2)]
+    check(got == want[-2:], f"offload_states: steps 6-7 {got} != "
+          f"{want[-2:]}")
+    names, worst = _masters_diff(torch, engine, ref_masters)
+    check(not names, f"offload_states: masters differ after 7 steps "
+          f"({names[:3]}, max |diff| {worst})")
+    return legs
+
+
+def _muon_checks(torch):
+    """Muon at ZERO_LAYERS (the loss falls over MUON_STEPS; the
+    Newton-Schulz seconds a step), and one step on TransformerConfig.tiny
+    on the card against the CPU's."""
+    from deepspeed_tpu_torch.runtime import optimizer as opt_mod
+
+    ns = opt_mod.orthogonalize_via_newton_schulz
+    ns_ms = []
+
+    def timed_ns(x, *a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = ns(x, *a, **kw)
+        end.record()
+        ns_ms.append((tuple(x.shape), start, end))
+        return out
+
+    opt_mod.orthogonalize_via_newton_schulz = timed_ns
+    try:
+        t0 = time.perf_counter()
+        cfg, model, engine = train_engine(torch, "Muon", ZERO_LAYERS)
+        batch = train_batch_tokens(torch, engine, cfg.vocab_size)
+        matrices = sorted({n for n in engine.params
+                           if engine.params[n].ndim == 2})
+        losses, times = [], []
+        for _ in range(MUON_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        opt_mod.orthogonalize_via_newton_schulz = ns
+    ns_total = sum(s.elapsed_time(e) for _, s, e in ns_ms) / MUON_STEPS
+    shapes = sorted({str(list(sh)) for sh, _, _ in ns_ms})
+    log(f"Muon: {ZERO_LAYERS} layers, losses {losses}, steps "
+        f"{[round(t, 3) for t in times]} s; Newton-Schulz over "
+        f"{len(matrices)} 2-D leaves {matrices} (shapes {shapes}): "
+        f"{ns_total:.1f} ms a step (CUDA events, float32, TF32 off)")
+    check(all(math.isfinite(x) for x in losses), "Muon: non-finite loss")
+    check(losses[-1] < losses[0], f"Muon: the loss did not fall: {losses}")
+    del engine, model, batch
+    _free(torch)
+    return {"layers": ZERO_LAYERS, "losses": losses, "step_s": times,
+            "newton_schulz_ms_per_step": ns_total, "matrices": matrices,
+            "ns_calls_per_step": len(ns_ms) / MUON_STEPS,
+            "tiny_vs_cpu": _muon_tiny_vs_cpu(torch)}
+
+
+def _muon_tiny_vs_cpu(torch):
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import CausalLM, TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig.tiny()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 128)))
+    config = {"train_batch_size": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "Muon", "params": {"lr": MUON_TINY_LR}}}
+    out = {}
+    for device in ("cpu", DEVICE):
+        params = {n: t.clone().to(device) for n, t in cpu_params.items()}
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=CausalLM(cfg, params, trainable=True), config=config,
+            device=device)
+        loss = float(engine.train_batch({"input_ids": tokens.to(device)}))
+        out[device] = (loss, {n: p.detach().cpu()
+                              for n, p in engine.params.items()})
+    (l_cpu, p_cpu), (l_card, p_card) = out["cpu"], out[DEVICE]
+    worst = max(float((p_card[n] - p_cpu[n]).abs().max()) for n in p_cpu)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    limit = MUON_TINY_STEP_FRACTION * MUON_TINY_LR
+    log(f"Muon tiny, one step: loss {l_card!r} (card) vs {l_cpu!r} (CPU), "
+        f"rel {rel:.3e} (tol 1e-5); masters max |diff| {worst:.3e} (tol "
+        f"{limit:.1e}, {MUON_TINY_STEP_FRACTION} of a step at lr "
+        f"{MUON_TINY_LR})")
+    check(rel <= 1e-5, f"Muon tiny: losses differ by {rel}")
+    check(worst <= limit, f"Muon tiny: masters differ by {worst}")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": rel,
+            "masters_max_abs": worst, "limit": limit}
+
+
+def _client_checks(torch, root):
+    """``torch.optim.AdamW(foreach=False)`` through ``initialize(
+    optimizer=...)`` at CKPT_LAYERS: CLIENT_STEPS steps (the loss falls),
+    save, 2 more; a fresh engine loads the tag and its 2 steps are bit
+    for bit the uninterrupted ones."""
+    import shutil
+
+    def factory(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=0.1,
+                                 foreach=False)
+
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfg, model, engine = train_engine(torch, None, CKPT_LAYERS,
+                                          client=factory)
+        check(type(engine.optimizer.optimizer).__name__ == "AdamW",
+              "the client factory's optimizer is not the engine's")
+        batch = train_batch_tokens(torch, engine, cfg.vocab_size)
+        losses = [float(engine.train_batch(batch))
+                  for _ in range(CLIENT_STEPS)]
+        check(all(math.isfinite(x) for x in losses) and
+              losses[-1] < losses[0], f"client AdamW: losses {losses}")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root)
+        save_s = time.perf_counter() - t0
+        straight = [float(engine.train_batch(batch)) for _ in range(2)]
+        del engine, model
+        _free(torch)
+        cfg, model, engine = train_engine(torch, None, CKPT_LAYERS,
+                                          seed=SEED + 7, client=factory)
+        t0 = time.perf_counter()
+        engine.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resumed = [float(engine.train_batch(batch)) for _ in range(2)]
+        log(f"client AdamW(foreach=False): {CKPT_LAYERS} layer(s), losses "
+            f"{losses}; save {save_s:.2f} s, load {load_s:.2f} s; then "
+            f"{straight} (uninterrupted) vs {resumed} (resumed)")
+        check(resumed == straight, f"client AdamW: resumed {resumed} != "
+              f"uninterrupted {straight}")
+        del engine, model, batch
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free(torch)
+    return {"layers": CKPT_LAYERS, "losses": losses, "save_s": save_s,
+            "load_s": load_s, "losses_uninterrupted": straight,
+            "losses_resumed": resumed}
+
+
+PINNED_PROBE_BYTES = 1 << 31      # the host buffer of each pinned kind
+
+
+def _pinned_kinds(torch):
+    """Ways to get page-locked host memory: → {kind: maker}; a maker
+    returns (a float32 host tensor of PINNED_PROBE_BYTES, its release)."""
+    import ctypes
+
+    from deepspeed_tpu_torch.runtime.swap_tensor import pinned
+
+    n = PINNED_PROBE_BYTES // 4
+
+    def caching():
+        return torch.empty(n, pin_memory=True), lambda: None
+
+    def registered():
+        t = torch.empty(n, dtype=torch.float32)
+        lib = pinned._cudart()
+        err = lib.cudaHostRegister(ctypes.c_void_p(t.data_ptr()),
+                                   ctypes.c_size_t(PINNED_PROBE_BYTES), 0)
+        if err != 0:
+            raise OSError(f"cudaHostRegister failed with CUDA error {err}")
+        return t, lambda: lib.cudaHostUnregister(ctypes.c_void_p(
+            t.data_ptr()))
+
+    def exact():
+        return pinned.pinned_empty((n,)), lambda: None
+
+    return {"caching allocator (torch.empty pin_memory=True)": caching,
+            "cudaHostRegister in place": registered,
+            "cudaHostAlloc, exact size (pinned.pinned_empty)": exact}
+
+
+def _pinned_copy_rates(torch):
+    """Host-to-device and device-to-host GB/s of a PINNED_PROBE_BYTES
+    buffer of each pinned kind (median of 3 on a side stream, CUDA
+    events), one direction at a time and both at once (two streams, two
+    halves), and the seconds to make the buffer."""
+    n = PINNED_PROBE_BYTES // 4
+    dev = torch.empty(n, dtype=torch.float32, device=DEVICE)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    out = {}
+    for kind, make in _pinned_kinds(torch).items():
+        t0 = time.perf_counter()
+        try:
+            host, release = make()
+        except (OSError, AttributeError) as e:
+            out[kind] = f"not measured: {e}"
+            continue
+        host.fill_(1.0)
+        alloc_s = time.perf_counter() - t0
+        res = {"make_s": alloc_s}
+        for direction in ("h2d", "d2h"):
+            ms = []
+            for _ in range(3):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+                with torch.cuda.stream(streams[0]):
+                    a.record()
+                    if direction == "h2d":
+                        dev.copy_(host, non_blocking=True)
+                    else:
+                        host.copy_(dev, non_blocking=True)
+                    b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            res[f"{direction}_gb_per_s"] = PINNED_PROBE_BYTES / sorted(
+                ms)[1] / 1e6
+        half = n // 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(streams[0]):
+            dev[:half].copy_(host[:half], non_blocking=True)
+        with torch.cuda.stream(streams[1]):
+            host[half:].copy_(dev[half:], non_blocking=True)
+        torch.cuda.synchronize()
+        res["both_ways_gb_per_s"] = PINNED_PROBE_BYTES / (
+            time.perf_counter() - t0) / 1e9
+        out[kind] = res
+        log(f"pinned {kind}: made in {alloc_s:.2f} s; H2D "
+            f"{res['h2d_gb_per_s']:.1f} GB/s, D2H {res['d2h_gb_per_s']:.1f} "
+            f"GB/s, both ways at once {res['both_ways_gb_per_s']:.1f} GB/s "
+            f"({PINNED_PROBE_BYTES / 2 ** 30:.0f} GiB)")
+        release()
+        del host
+    del dev
+    _free(torch)
+    return out
+
+
+def phase_zero_offload(torch):
+    """ZeRO at one device on the training path at llama3-8B widths (bf16,
+    remat, 4 x 2048 tokens, FusedAdam): the five ZERO_VARIANTS at
+    ZERO_LAYERS, each bit for bit with stage 0 (losses and masters); a
+    planted fault (one leaf's moments never written back) caught; an
+    injected prefetch failure (same losses); offload_states/reload_states
+    on cpu and nvme continuing bit for bit; ZERO_BIG_LAYERS layers with
+    the state on the host (81.7 GB resident); Muon; a client optimizer.
+    → the phase's record."""
+    from deepspeed_tpu_torch.runtime.fault import injection
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "deepspeed_tpu_torch", "build")
+    out = {"variants": {}}
+    _free(torch)
+    out["pinned_copy_rates"] = _pinned_copy_rates(torch)
+    ref_masters = want = None
+    for name, zero in ZERO_VARIANTS:
+        engine, res = _zero_run(torch, name, zero)
+        if name == "stage0":
+            ref_masters, want = _host_masters(torch, engine), res["losses"]
+        else:
+            names, worst = _masters_diff(torch, engine, ref_masters)
+            check(res["losses"] == want, f"zero {name}: losses "
+                  f"{res['losses']} != stage 0's {want}")
+            check(not names, f"zero {name}: masters differ from stage 0's "
+                  f"({names[:3]}, max |diff| {worst})")
+            res["bitwise_vs_stage0"] = True
+        out["variants"][name] = res
+        del engine
+        _free(torch)
+
+    # planted fault: one leaf's moments never go home
+    engine, res = _zero_run(torch, "cpu + planted fault", ZERO_VARIANTS[2][1],
+                            fault_leaf=ZERO_FAULT_LEAF)
+    names, worst = _masters_diff(torch, engine, ref_masters)
+    loss_gap = max(abs(a - b) for a, b in zip(res["losses"], want))
+    log(f"planted fault ({ZERO_FAULT_LEAF}'s moments not written back): "
+        f"{len(names)} masters differ, max |diff| {worst:.3e}; losses "
+        f"{res['losses']} vs {want}, max |diff| {loss_gap:.3e}")
+    check(ZERO_FAULT_LEAF in names and worst > 0, "the planted write-back "
+          "fault was not caught by the bit check")
+    out["planted_fault"] = {"leaf": ZERO_FAULT_LEAF, "masters_differ": names,
+                            "max_abs": worst, "loss_max_abs": loss_gap}
+    del engine
+    _free(torch)
+
+    # an injected prefetch failure: the same bits, one failure counted
+    os.environ[injection.ENV_VAR] = \
+        "site=offload_prefetch,kind=offload,times=1"
+    injection.clear()
+    try:
+        engine, res = _zero_run(torch, "cpu_pipeline + injected failure",
+                                ZERO_VARIANTS[4][1], warmup=1, timed=2)
+    finally:
+        del os.environ[injection.ENV_VAR]
+        injection.clear()
+    stats = res["prefetch"]
+    log(f"injected offload_prefetch failure: {stats}; losses "
+        f"{res['losses']} vs {want[:3]}")
+    check(stats["failures"] == 1 and stats["arms"] == 2,
+          f"prefetcher counters {stats}")
+    check(res["losses"] == want[:3], "an injected prefetch failure changed "
+          "the losses")
+    out["injected_prefetch_failure"] = {"prefetch": stats,
+                                        "losses": res["losses"]}
+    del engine
+    _free(torch)
+
+    # offload_states / reload_states after step 3 of the stage-0 run
+    engine, res = _zero_run(torch, "stage0 for offload_states", {"stage": 0},
+                            warmup=1, timed=2)
+    check(res["losses"] == want[:3], "stage 0 rerun differs")
+    batch = train_batch_tokens(torch, engine, engine.module.config.vocab_size)
+    swap_dir = os.path.join(build, "swap_smoke")
+    os.makedirs(swap_dir, exist_ok=True)
+    try:
+        out["offload_states"] = _offload_states_legs(
+            torch, engine, batch, want, ref_masters, swap_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(swap_dir, ignore_errors=True)
+    del engine, batch, ref_masters
+    _free(torch)
+
+    # 16 layers: the resident state would not fit the card
+    from deepspeed_tpu_torch import TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(),
+                              num_layers=ZERO_BIG_LAYERS)
+    n_big = sum(math.prod(s) for s in param_shapes(cfg).values())
+    pinned = 2 * 4 * n_big
+    avail = _mem_available_bytes()
+    log(f"zero big: {ZERO_BIG_LAYERS} layers, {n_big / 1e9:.3f} B params: "
+        f"resident state {18 * n_big / 1e9:.1f} GB (18 bytes a param), "
+        f"{pinned / 1e9:.1f} GB pinned on the host; MemAvailable "
+        f"{avail / 1e9:.1f} GB")
+    check(avail >= pinned + ZERO_HOST_MARGIN, f"the host cannot hold the "
+          f"{ZERO_BIG_LAYERS}-layer run's pinned state: MemAvailable "
+          f"{avail / 1e9:.1f} GB < {pinned / 1e9:.1f} GB + "
+          f"{ZERO_HOST_MARGIN / 1e9:.0f} GB")
+    engine, res = _zero_run(torch, f"cpu_pipeline {ZERO_BIG_LAYERS} layers",
+                            ZERO_VARIANTS[4][1], layers=ZERO_BIG_LAYERS,
+                            warmup=ZERO_BIG_WARMUP, timed=ZERO_BIG_TIMED)
+    timed = res["losses"][ZERO_BIG_WARMUP:]
+    check(timed[-1] < timed[0], f"zero big: the loss did not fall: {timed}")
+    res["resident_state_gb"] = 18 * n_big / 1e9
+    res["mem_available_gb"] = avail / 1e9
+    out["big"] = res
+    del engine
+    _free(torch)
+
+    out["muon"] = _muon_checks(torch)
+    out["client_optimizer"] = _client_checks(
+        torch, os.path.join(build, "client_ckpt_smoke"))
+    return out
 
 
 def phase_optimizer_timing(torch, launches, errs):
@@ -6884,10 +7440,16 @@ def main():
         fa_launches, fused_adam = phase_fused_adam_main_path(torch, training)
         others = phase_other_fused(torch, fused_adam["losses"][0])
         checkpoint = phase_checkpoint(torch)
+        zero_offload = phase_zero_offload(torch)
         kernels += phase_train_timing(torch, train_launches, train_errs)
         opt_launches = {"fused_adam": fa_launches["fused_adam"],
                         **{n: o["launches"] for n, o in others.items()}}
         kernels += phase_optimizer_timing(torch, opt_launches, opt_errs)
+        # K5 on the offloaded path: one launch a piece, not a leaf
+        next(r for r in kernels if r["name"] == "fused_adam")[
+            "launches_offloaded_path"] = round(
+                zero_offload["variants"]["cpu"]["launches_per_step"][
+                    "fused_adam"] * ZERO_TIMED)
         sparse_launches, sparse, sparse_errs = phase_sparse_main_path(torch)
         kernels += phase_sparse_timing(torch, sparse_launches, sparse_errs,
                                        sparse)
@@ -6916,6 +7478,7 @@ def main():
     log(json.dumps({"training_fused_adam": fused_adam,
                     "other_fused_optimizers": others,
                     "checkpoint": checkpoint}))
+    log(json.dumps({"zero_offload": zero_offload}))
     log(json.dumps({"sparse_attention": sparse}))
     log(json.dumps({"head_dim_256": {
         "timing": wide_heads,

@@ -5,7 +5,8 @@ never imports). It serves the Llama-family ``CausalLM`` (and the
 universal families' ``models.families.UniversalCausalLM``) through
 ``InferenceEngineV2.generate``, greedily or speculatively
 (``inference.v2.speculative``), and trains it through :func:`initialize` →
-``DeepSpeedEngine.train_batch`` on an NVIDIA H100, on one process or on a
+``DeepSpeedEngine.train_batch`` on an NVIDIA H100, on one process (ZeRO
+stages 0-3, the optimizer state optionally in host memory) or on a
 data-parallel ``torch.distributed`` world (``deepspeed_tpu_torch.comm``),
 with hand-written CUDA kernels under ``csrc/``. Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
@@ -44,19 +45,20 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     over the world ``comm.init_distributed`` joined (one process without
     it); the batch sizes are solved against its data extent.
 
-    Not offered: a client ``optimizer`` (ROADMAP Queue 3.2: the optimizer
-    comes from the config's ``optimizer`` block), and ``training_data`` /
-    ``collate_fn`` (ROADMAP M10), and a MoE model (``num_experts > 1``:
-    MoE training, ROADMAP M9). → ``(engine, optimizer, None,
-    lr_scheduler)``."""
+    ``optimizer``, when given, is a client optimizer: a factory
+    ``f(masters) -> torch.optim.Optimizer`` that the engine calls over its
+    float32 masters (a list in parameter order) and steps in its own
+    order (unscale, clip, zero non-finite values, ``step()``; the config's
+    scheduler, if any, sets each param group's lr first). It replaces the
+    config's ``optimizer`` block, as the JAX package's optax client does.
+
+    Not offered: ``training_data`` / ``collate_fn`` (ROADMAP M10), and a
+    MoE model (``num_experts > 1``: MoE training, ROADMAP M9). →
+    ``(engine, optimizer, None, lr_scheduler)``."""
     if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
         raise NotImplementedError(
             "MoE training is not ported yet (ROADMAP M9); a MoE model "
             "serves through InferenceEngineV2")
-    if optimizer is not None:
-        raise NotImplementedError(
-            "a client optimizer is not ported yet (ROADMAP Queue 3.2): name "
-            "it in the config's \"optimizer\" block instead")
     if training_data is not None or collate_fn is not None:
         raise NotImplementedError(
             "training_data / collate_fn (the engine's data loader) are not "
@@ -76,7 +78,7 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         config = DeepSpeedConfig(raw, topology=topology)
     engine = DeepSpeedEngine(model, config, model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler, device=device,
-                             topology=topology)
+                             topology=topology, optimizer=optimizer)
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 

@@ -19,9 +19,10 @@ exchanges them here, with the facade's collectives:
     new residual computed by ``wire_residual``, K10a's variant).
 
 What stays refused: the sparse-gradient wire (``sparse_gradients``,
-ROADMAP M8), qwZ and ZeRO stage 3 (M6), and the overlap manager's
-bucketed, 2-hop and fused-gemm plain-wire algorithms (the ``overlap``
-block, M6); ``runtime/config.py`` raises for each.
+ROADMAP M8), qwZ (M8), ZeRO stages 1-3 on a world (M6; the engine
+raises), and the overlap manager's bucketed, 2-hop and fused-gemm
+plain-wire algorithms (the ``overlap`` block, M6); ``runtime/config.py``
+raises for the others.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@
 reference framework's JSON names: ``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``,
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``zero_optimization`` (``stage`` and ZeRO++'s
+``zero_optimization`` (``runtime/zero/config.py``: the stage, optimizer
+offload with Twin-Flow's ``ratio`` and ``pipeline_read``, and ZeRO++'s
 ``zero_quantized_gradients`` and ``zeropp_loco``), ``fp16``, ``bf16`` and
 ``checkpoint``. The batch solve and its ``ValueError``s are the JAX
 package's, with the data-parallel size of the topology it is given (the
@@ -28,13 +29,14 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..utils.logging import logger
+from .zero.config import DeepSpeedZeroConfig
 
 # top-level blocks the JAX package honours that the port does not
 # implement yet → the ROADMAP item that ports them
 _NOT_PORTED = {
-    "overlap": "M6 (ZeRO 1-3 and comm/compute overlap)",
+    "overlap": "M6 (ZeRO at world > 1 and comm/compute overlap)",
     "sparse_gradients": "M8 (quantized and sparse comm)",
-    "communication_data_type": "M6",
+    "communication_data_type": "M6 (ZeRO at world > 1)",
     "activation_checkpointing": "M9 (remat comes from TransformerConfig."
                                 "remat in the port)",
     "pipeline": "M9 (other parallelism)",
@@ -101,15 +103,6 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
-class ZeroConfig:
-    stage: int = 0
-    zero_quantized_weights: bool = False
-    zero_quantized_gradients: bool = False
-    #: LoCo error feedback on the quantized gradient wire
-    zeropp_loco: bool = False
-
-
-@dataclasses.dataclass
 class OptimizerConfig:
     type: str = "Adam"
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -162,7 +155,7 @@ class DeepSpeedConfig:
         self.checkpoint_config = _block(CheckpointConfig,
                                         config.get("checkpoint"))
         zero = dict(config.get("zero_optimization", {}) or {})
-        self.zero_config = _block(ZeroConfig, zero)
+        self.zero_config = DeepSpeedZeroConfig.from_dict(zero)
         self.zero_stage: int = self.zero_config.stage
         self._topology = topology
 
@@ -230,24 +223,21 @@ class DeepSpeedConfig:
     @staticmethod
     def _refuse_not_ported(config: Dict[str, Any],
                            zero: Dict[str, Any]) -> None:
-        if zero.get("stage", 0) > 0:
+        if zero.get("zero_quantized_weights") and zero.get("stage", 0) >= 3:
             raise NotImplementedError(
-                f"zero_optimization.stage={zero['stage']} is not ported yet "
-                f"(ROADMAP M6); the port trains with stage 0")
-        for key in ("offload_optimizer", "offload_param"):
-            block = zero.get(key) or {}
-            if block.get("device", "none") not in ("none", None):
-                raise NotImplementedError(
-                    f"zero_optimization.{key} is not ported yet (ROADMAP M6)")
+                "zero_quantized_weights (qwZ) at stage 3 is not ported yet "
+                "(ROADMAP M8; its quantized allgather gathers stage 3's "
+                "sharded parameters, ROADMAP M6's world part)")
         if zero.get("overlap_comm"):
             raise NotImplementedError(
                 "zero_optimization.overlap_comm is not ported yet "
-                "(ROADMAP M6)")
+                "(ROADMAP M6, ZeRO at world > 1)")
         if zero.get("zero_hpz_partition_size", 1) > 1 \
                 or zero.get("mics_shard_size", -1) > 0:
             raise NotImplementedError(
                 "hpZ/MiCS shard groups (zero_hpz_partition_size, "
-                "mics_shard_size) are not ported yet (ROADMAP M6)")
+                "mics_shard_size) are not ported yet (ROADMAP M6, ZeRO at "
+                "world > 1)")
         for key, item in _NOT_PORTED.items():
             if key in config and _enabled(config[key]):
                 raise NotImplementedError(

@@ -1,6 +1,6 @@
 """DeepSpeedEngine for the PyTorch port (counterpart of
-``deepspeed_tpu/runtime/engine.py``): ZeRO stage 0 on one device, or on
-each rank of a data-parallel ``torch.distributed`` world.
+``deepspeed_tpu/runtime/engine.py``): ZeRO stages 0-3 on one device, or
+stage 0 on each rank of a data-parallel ``torch.distributed`` world.
 
 The engine holds float32 master parameters (``self.params``, a dict of
 dotted name → leaf tensor that requires grad) and an optimizer over them.
@@ -31,6 +31,23 @@ imperative ``backward()``/``step()`` at n > 1 raise
 ``NotImplementedError`` (ROADMAP M8). ``save_checkpoint`` writes from rank
 0 between two barriers; every rank loads.
 
+ZeRO on one device: stages 1-3 train exactly as stage 0 (the JAX sharding
+plan replicates every array at ZeRO size 1) and
+``zero_optimization_stage()`` reports the configured stage; a stage >= 1
+on a world of n > 1 raises ``NotImplementedError`` (ROADMAP M6, ZeRO
+sharding). ``offload_optimizer.device: cpu`` keeps the optimizer state in
+host memory and streams it through each update
+(``runtime/swap_tensor/streamed_update.py``), all of it at ``ratio`` 1 or
+a Twin-Flow share of each leaf below 1; ``pipeline_read`` stages the
+first pieces before the forward (``host_tier.HostOffloadPrefetcher``).
+The results are bit for bit the resident engine's. As in the JAX engine,
+``offload_param`` and ``offload_optimizer.device: nvme`` are accepted and
+change nothing. ``offload_states``/``reload_states`` move the optimizer
+state and the masters to host memory or to files and back.
+
+A client optimizer is a factory ``f(masters) -> torch.optim.Optimizer``
+(``optimizer.ClientOptimizer``), stepped in the engine's order.
+
 Updates are in place (the JAX engine donates its state instead). When the
 model's parameters are already float32 on the engine's device, the masters
 share their storage, so the model sees the trained values.
@@ -49,7 +66,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Dict, Optional, Tuple
+import tempfile
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,8 +80,19 @@ from .checkpoint_engine.numpy_checkpoint_engine import NumpyCheckpointEngine
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import LossScalerState, create_loss_scaler
 from .lr_schedules import get_schedule_fn
-from .optimizer import build_optimizer
+from .optimizer import ClientOptimizer, build_optimizer
 from .topology import DATA, get_topology
+
+
+@dataclasses.dataclass
+class _Away:
+    """One ``offload_states`` group while it is off the device."""
+    device: str                                   # "cpu" or "nvme"
+    tensors: Dict[str, torch.Tensor]              # the emptied device tensors
+    sizes: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
+    scratch: list = dataclasses.field(default_factory=list)
+    host: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    swapper: Any = None
 
 
 def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -74,7 +103,8 @@ def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 class DeepSpeedEngine:
     def __init__(self, model: Any, config: DeepSpeedConfig,
                  model_parameters: Optional[Dict[str, torch.Tensor]] = None,
-                 lr_scheduler: Any = None, device=None, topology=None):
+                 lr_scheduler: Any = None, device=None, topology=None,
+                 optimizer: Optional[Callable] = None):
         self.config = config
         self.device = get_accelerator().resolve_device(device)
         self.topology = topology if topology is not None else get_topology()
@@ -84,6 +114,13 @@ class DeepSpeedEngine:
                              f"{self.dp_world_size} is not the world size "
                              f"{comm.get_world_size()}")
         self.dp_rank = self.topology.data_index
+        zc = config.zero_config
+        if zc.stage >= 1 and self.dp_world_size > 1:
+            raise NotImplementedError(
+                f"zero_optimization.stage={zc.stage} on a world of "
+                f"{self.dp_world_size}: ZeRO sharding is not ported yet "
+                f"(ROADMAP M6); stages 1-3 run on one device, stage 0 on a "
+                f"world")
         self.module = model
         self.loss_fn = self._resolve_loss_fn(model)
         self.compute_dtype = config.dtype
@@ -100,8 +137,16 @@ class DeepSpeedEngine:
             for name, t in named.items()}
 
         self._schedule_fn = self._resolve_schedule()
-        self.optimizer = self._resolve_optimizer()
-        self.optimizer.init(self.params)
+        self.optimizer = self._resolve_optimizer(optimizer)
+        #: the update over host-resident state, None when resident
+        self._offload = None
+        self._offload_prefetcher = None
+        if zc.offload_optimizer_device() == "cpu":
+            self._offload = self._build_offload(zc)
+        else:
+            self.optimizer.init(self.params)
+        #: what offload_states moved off the device, by group
+        self._offloaded: Dict[str, Any] = {}
         self.loss_scaler = create_loss_scaler(config.fp16, self.compute_dtype)
         self.scaler_state = self.loss_scaler.init()
 
@@ -144,11 +189,42 @@ class DeepSpeedEngine:
                                    base_lr=base_lr)
         return lambda step: base_lr
 
-    def _resolve_optimizer(self):
+    def _resolve_optimizer(self, client: Optional[Callable]):
+        if client is not None:
+            scheduled = bool(self.config.scheduler and
+                             self.config.scheduler.type)
+            return ClientOptimizer(
+                client, self._schedule_fn if scheduled else None)
         cfg = self.config.optimizer
         if cfg is None:
             return build_optimizer("adam", {}, self._schedule_fn)
         return build_optimizer(cfg.type, dict(cfg.params), self._schedule_fn)
+
+    def _build_offload(self, zc):
+        """The streamed update of ``offload_optimizer.device: cpu``."""
+        from .swap_tensor.host_tier import HostOffloadPrefetcher
+        from .swap_tensor.streamed_update import StreamedUpdate
+
+        if isinstance(self.optimizer, ClientOptimizer):
+            raise ValueError(
+                "offload_optimizer.device=cpu cannot stream a client "
+                "optimizer: its state lives where torch.optim puts it "
+                "(next to each parameter), not in host buffers the engine "
+                "owns; name the optimizer in the config instead")
+        block = zc.offload_optimizer
+        ratio = float(block.ratio) if block is not None else 1.0
+        buffers = block.buffer_count if block is not None else 4
+        offload = StreamedUpdate(self.optimizer, self.params, self.device,
+                                 ratio=ratio, buffer_count=buffers)
+        if block is not None and block.pipeline_read:
+            self._offload_prefetcher = HostOffloadPrefetcher()
+        return offload
+
+    @property
+    def _state_owner(self):
+        """What steps the optimizer and reads and writes its state by
+        name: the streamed update when the state is offloaded."""
+        return self._offload if self._offload is not None else self.optimizer
 
     # ------------------------------------------------------------------ #
     # Introspection (reference names)
@@ -232,7 +308,7 @@ class DeepSpeedEngine:
         for g in grads.values():
             torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
         if not overflow:
-            self.optimizer.step(self.params, grads)
+            self._state_owner.step(self.params, grads)
         self.scaler_state = self.loss_scaler.update(self.scaler_state,
                                                     overflow)
         if overflow:
@@ -248,8 +324,11 @@ class DeepSpeedEngine:
         """One optimizer step over a global batch whose leading dim is
         ``train_batch_size``; with gradient accumulation it is split into
         ``gas`` micro-batches. → the mean micro-batch loss (float32)."""
+        self._require_states("train_batch")
         gas = self.gradient_accumulation_steps()
         batch = self._to_device(batch)
+        if self._offload_prefetcher is not None:
+            self._offload_prefetcher.arm(self._offload)
         if self._dp_step is not None:
             loss = self._dp_step(self._rank_rows(batch))
             self.micro_steps += gas
@@ -304,6 +383,7 @@ class DeepSpeedEngine:
         """Loss-only forward (eval); for training use backward()/step().
         On a world of n > 1 each rank takes its rows of the global batch
         and every rank returns the data-mean loss."""
+        self._require_states("forward")
         batch = self._to_device(batch)
         if self._dp_step is not None:
             micro = batch.shape[0] if not isinstance(batch, dict) else \
@@ -329,6 +409,7 @@ class DeepSpeedEngine:
         unlike the reference), it takes the micro-batch, not a loss.
         → the micro-batch loss."""
         self._refuse_imperative_dp("backward")
+        self._require_states("backward")
         loss = self._loss_and_backward(self._to_device(batch))
         self.micro_steps += 1
         return loss
@@ -345,6 +426,7 @@ class DeepSpeedEngine:
         """Apply the update at the accumulation boundary (else a no-op),
         the accumulated sum scaled by 1/gas after unscaling."""
         self._refuse_imperative_dp("step")
+        self._require_states("step")
         if not self.is_gradient_accumulation_boundary():
             return
         grads = self._grads()
@@ -374,6 +456,128 @@ class DeepSpeedEngine:
                 for name, p in self.params.items()}
 
     # ------------------------------------------------------------------ #
+    # State offload (JAX engine.offload_states / reload_states)
+    # ------------------------------------------------------------------ #
+    def _device_groups(self, what: str) -> Tuple[Dict[str, torch.Tensor],
+                                                 Sequence[torch.Tensor]]:
+        """The device tensors of one ``offload_states`` group: those whose
+        values move, and scratch whose memory is only freed (the streamed
+        update's ring)."""
+        if what in ("params", "hp_params"):
+            return dict(self.params), ()
+        if what != "optimizer":
+            raise ValueError(f"cannot offload {what!r}")
+        if self._offload is not None:
+            return self._offload.device_state(), self._offload.ring_buffers()
+        owner = self.optimizer
+        if isinstance(owner, ClientOptimizer):
+            return {f"{name}/{k}": t for name in self.params
+                    for k, t in owner.named_state(name).items()
+                    if t.device == self.device}, ()
+        return {f"{name}/{k}": t for name in self.params
+                for k, t in owner.named_state(name).items()}, ()
+
+    @staticmethod
+    def _free_storage(t: torch.Tensor) -> Tuple[int, torch.Size, Any]:
+        """Release ``t``'s device memory. → what :meth:`_remake_storage`
+        needs: the storage's bytes (shared with every tensor on it, the
+        model's parameter too), or -1 when the storage is not resizable
+        (a tensor made from numpy), whose ``.data`` is dropped instead;
+        the shape and dtype."""
+        shape, dtype = t.shape, t.dtype
+        storage = t.untyped_storage()
+        if not storage.resizable():
+            t.data = torch.empty(0, dtype=dtype, device=t.device)
+            return -1, shape, dtype
+        nbytes = storage.nbytes()
+        if t.storage_offset() or nbytes != t.numel() * t.element_size():
+            raise ValueError("offload_states moves whole tensors; this one "
+                             "is a view into a larger storage")
+        storage.resize_(0)
+        return nbytes, shape, dtype
+
+    @staticmethod
+    def _remake_storage(t: torch.Tensor, nbytes: int, shape, dtype) -> None:
+        if nbytes < 0:
+            t.data = torch.empty(shape, dtype=dtype, device=t.device)
+        else:
+            t.untyped_storage().resize_(nbytes)
+
+    @torch.no_grad()
+    def offload_states(self, include=("optimizer",), device: str = "cpu",
+                       nvme_path: Optional[str] = None,
+                       pin_memory: bool = True,
+                       non_blocking: bool = False) -> None:
+        """Move engine state off the device and free its memory:
+        ``include`` names ``"optimizer"`` and/or ``"params"`` (or
+        ``"hp_params"``, the float32 masters); ``device="cpu"`` copies
+        into host memory (page-locked when ``pin_memory`` and the engine
+        is on CUDA, ``swap_tensor.pinned``), ``"nvme"`` writes
+        files under ``nvme_path`` (a new folder in the temporary directory
+        by default) with ``partitioned_param_swapper.AsyncTensorSwapper``.
+        Each tensor's storage is released (so the model's parameters,
+        which share the masters' storage, go too) and comes back at
+        :meth:`reload_states`; until then ``train_batch`` and the other
+        entry points raise."""
+        if device not in ("cpu", "nvme"):
+            raise ValueError(f"offload_states device must be 'cpu' or "
+                             f"'nvme', got {device!r}")
+        if self._offload is not None:
+            self._offload.invalidate_staged()
+        pin = bool(pin_memory) and self.device.type == "cuda"
+        for what in include:
+            key = "params" if what == "hp_params" else what
+            if key in self._offloaded:
+                raise RuntimeError(f"{what!r} is already offloaded")
+            tensors, scratch = self._device_groups(key)
+            away = _Away(device, tensors)
+            if device == "nvme":
+                from .swap_tensor.partitioned_param_swapper import \
+                    AsyncTensorSwapper
+
+                away.swapper = AsyncTensorSwapper(tempfile.mkdtemp(
+                    prefix="dstpu_swap_", dir=nvme_path))
+                away.swapper.swap_out(key, tensors, blocking=not non_blocking)
+            else:
+                from .swap_tensor.pinned import pinned_empty
+
+                for k, t in tensors.items():
+                    away.host[k] = pinned_empty(t.shape, t.dtype) if pin \
+                        else torch.empty(t.shape, dtype=t.dtype)
+                    away.host[k].copy_(t, non_blocking=pin and non_blocking)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            away.sizes = {k: self._free_storage(t)
+                          for k, t in tensors.items()}
+            away.scratch = [(t, self._free_storage(t)) for t in scratch]
+            self._offloaded[key] = away
+
+    @torch.no_grad()
+    def reload_states(self, non_blocking: bool = False) -> None:
+        """Bring back what :meth:`offload_states` moved: each tensor's
+        storage is re-made on the device and its values copied in."""
+        for key, away in list(self._offloaded.items()):
+            for k, t in away.tensors.items():
+                self._remake_storage(t, *away.sizes[k])
+            for t, size in away.scratch:
+                self._remake_storage(t, *size)
+            if away.swapper is not None:
+                away.swapper.swap_in(key, into=away.tensors)
+                away.swapper.cleanup()
+            else:
+                for k, t in away.tensors.items():
+                    t.copy_(away.host[k], non_blocking=non_blocking)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            del self._offloaded[key]
+
+    def _require_states(self, what: str) -> None:
+        if self._offloaded:
+            raise RuntimeError(
+                f"{what}() while {sorted(self._offloaded)} is offloaded by "
+                f"offload_states(): call reload_states() first")
+
+    # ------------------------------------------------------------------ #
     # Checkpointing (the universal layout; JAX engine signatures)
     # ------------------------------------------------------------------ #
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -385,11 +589,12 @@ class DeepSpeedEngine:
         ``client_state`` must be JSON-serialisable (tensors become
         lists). ``exclude_frozen_parameters`` is accepted and, as in the
         JAX engine, has no effect: every master is saved."""
+        self._require_states("save_checkpoint")
         tag = tag or f"global_step{self.global_steps}"
         leaves = {}
         for name, p in self.params.items():
             leaves[universal_name(name)] = {
-                "param": p.detach(), **self.optimizer.named_state(name)}
+                "param": p.detach(), **self._state_owner.named_state(name)}
         scheduler = self.lr_scheduler.state_dict() \
             if hasattr(self.lr_scheduler, "state_dict") else None
         meta = {
@@ -432,6 +637,7 @@ class DeepSpeedEngine:
         JAX engine. ``load_module_strict`` requires the checkpoint's
         parameter names to be the engine's. → ``(path, client_state)``, or
         ``(None, {})`` when there is nothing to load."""
+        self._require_states("load_checkpoint")
         if tag is None and os.path.exists(os.path.join(load_dir, INDEX_FILE)):
             load_dir, tag = os.path.split(os.path.abspath(load_dir))
         store = NumpyCheckpointEngine(load_dir)
@@ -457,13 +663,8 @@ class DeepSpeedEngine:
                 if rec is None:
                     continue
                 p.copy_(rec["param"])
-                if not full:
-                    continue
-                for sname, buf in self.optimizer.named_state(name).items():
-                    if sname in rec:
-                        buf.copy_(rec[sname])
-                    else:
-                        absent.add(sname)
+                if full:
+                    absent |= self._state_owner.load_named_state(name, rec)
         if absent:
             logger.warning(
                 f"checkpoint {ckpt['path']} holds no {sorted(absent)} for "

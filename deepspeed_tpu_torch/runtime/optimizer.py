@@ -34,12 +34,21 @@ on overflow does not advance it. Each optimizer names its per-parameter
 state (``state_names``; ``named_state``) with the universal checkpoint
 layout's names, which the engine's checkpoints read and write.
 
-Muon and the 1-bit optimizers raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``"Muon"`` is ``optax.contrib.muon(lr)`` as the JAX factory builds it
+(:class:`Muon`). A client ``torch.optim.Optimizer`` runs through
+:class:`ClientOptimizer`. The 1-bit optimizers raise
+``NotImplementedError`` naming ROADMAP M8.
+
+Each optimizer updates one leaf at a time through :meth:`update_leaf`
+with the step's arguments from :meth:`step_hyper`, so that the streamed
+update of an offloaded state (``runtime/swap_tensor/streamed_update.py``)
+runs the same arithmetic on the same values wherever its operands live;
+:meth:`elementwise` says whether a leaf's update may run on a slice of it
+(no reduction over the leaf).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Set, Tuple
 
 import torch
 
@@ -49,7 +58,6 @@ from ..ops.adam.fused_adam import (bias_correction, fused_adagrad_update,
 from ..ops.lamb.fused_lamb import fused_lamb_update
 
 _NOT_OFFERED = {
-    "muon": "Queue 1 Muon (optax.contrib.muon)",
     "onebitadam": "Queue 1 M8",
     "onebitlamb": "Queue 1 M8",
     "zerooneadam": "Queue 1 M8",
@@ -58,39 +66,93 @@ _NOT_OFFERED = {
 _ADAM_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
+def check_state_shape(name: str, sname: str, value: torch.Tensor,
+                      shape) -> None:
+    """Raise unless a checkpoint's state leaf has its parameter's shape
+    (a JAX Twin-Flow tag's export holds half-leaves: ROADMAP's
+    divergences of the reference)."""
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(f"checkpoint state {sname!r} of {name!r} has shape "
+                         f"{tuple(value.shape)}, the parameter "
+                         f"{tuple(shape)}")
+
+
 class _Optimizer:
     """Per-parameter state, an update count, and an lr schedule."""
 
     #: names of one parameter's state tensors, in ``state[name]`` order:
     #: the leaf names of the universal checkpoint layout
     state_names: Tuple[str, ...] = ()
+    #: the value every state tensor starts from
+    initial_state_value = 0.0
 
     def __init__(self, lr: Callable[[int], float], weight_decay: float):
         self.lr = lr
         self.weight_decay = float(weight_decay)
         self.count = 0
         self.state: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self.shapes: Dict[str, Tuple[int, ...]] = {}
+
+    def plan(self, params: Dict[str, torch.Tensor]) -> None:
+        """Record the parameters' shapes (what the per-leaf rules read)
+        without allocating any state."""
+        self.shapes = {name: tuple(p.shape) for name, p in params.items()}
 
     def init(self, params: Dict[str, torch.Tensor]) -> None:
-        self.state = {name: self._init_one(p) for name, p in params.items()}
+        self.plan(params)
+        self.state = {name: self._init_one(name, p)
+                      for name, p in params.items()}
 
-    def _init_one(self, p: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.zeros_like(p) for _ in self.state_names)
+    def _init_one(self, name: str, p: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.full_like(p, self.initial_state_value)
+                     for _ in self.leaf_state_names(name))
+
+    def leaf_state_names(self, name: str) -> Tuple[str, ...]:
+        """Parameter ``name``'s state names (after :meth:`plan`)."""
+        return self.state_names
+
+    def elementwise(self, name: str) -> bool:
+        """Whether parameter ``name``'s update is elementwise, so that it
+        may run on any slice of the leaf (no norm over the leaf)."""
+        return True
 
     def named_state(self, name: str) -> Dict[str, torch.Tensor]:
         """Parameter ``name``'s state tensors by their layout names."""
-        return dict(zip(self.state_names, self.state[name]))
+        return dict(zip(self.leaf_state_names(name), self.state[name]))
+
+    def load_named_state(self, name: str, rec: Dict[str, Any]) -> Set[str]:
+        """Copy a checkpoint record's state leaves into parameter
+        ``name``'s state. → the state names the record lacks."""
+        absent = set()
+        for sname, buf in self.named_state(name).items():
+            if sname in rec:
+                check_state_shape(name, sname, rec[sname], buf.shape)
+                buf.copy_(rec[sname])
+            else:
+                absent.add(sname)
+        return absent
 
     def current_lr(self) -> float:
         return float(self.lr(self.count))
+
+    def step_hyper(self) -> Any:
+        """The arguments every :meth:`update_leaf` of this step takes."""
+        return self.current_lr()
+
+    def update_leaf(self, p: torch.Tensor, g: torch.Tensor,
+                    state: Tuple[torch.Tensor, ...], hyper: Any) -> None:
+        """Update ``p`` (a leaf, or a slice of one where
+        :meth:`elementwise`) and its state in place."""
+        self._update_one(p, g, state, hyper)
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, torch.Tensor]) -> None:
         """One update, in place, with ``lr = schedule(count)``."""
-        lr = self.current_lr()
+        hyper = self.step_hyper()
         for name, p in params.items():
-            self._update_one(p, grads[name], self.state[name], lr)
+            self.update_leaf(p, grads[name], self.state[name], hyper)
         self.count += 1
 
 
@@ -124,6 +186,9 @@ class AdamW(_Optimizer):
 class Lamb(AdamW):
     """optax ``lamb``: the adam update plus decoupled weight decay, scaled
     by the leaf's trust ratio ‖p‖/‖u‖ (1 where either norm is 0)."""
+
+    def elementwise(self, name):
+        return False
 
     def _update_one(self, p, g, state, lr):
         m, v = state
@@ -162,14 +227,11 @@ class Adagrad(_Optimizer):
     decay (the JAX factory passes none)."""
 
     state_names = ("sum_of_squares",)
-    initial_accumulator_value = 0.1
+    initial_state_value = 0.1
 
     def __init__(self, lr, eps=1e-8):
         super().__init__(lr, 0.0)
         self.eps = float(eps)
-
-    def _init_one(self, p):
-        return (torch.full_like(p, self.initial_accumulator_value),)
 
     def _update_one(self, p, g, state, lr):
         (s,) = state
@@ -212,10 +274,16 @@ class _Fused(_Optimizer):
     def _leaf_kwargs(self, lr: float) -> Dict[str, Any]:
         return dict(self.hyper, step=self.count, lr=lr)
 
+    def step_hyper(self):
+        return self._leaf_kwargs(self.current_lr())
+
+    def update_leaf(self, p, g, state, hyper):
+        type(self).update(p, g, *state, **hyper)
+
     @torch.no_grad()
     def step(self, params, grads):
         multi_tensor_apply(type(self).update, params, grads, self.state,
-                           **self._leaf_kwargs(self.current_lr()))
+                           **self.step_hyper())
         self.count += 1
 
 
@@ -236,6 +304,9 @@ class FusedLamb(_Fused):
 
     state_names = _ADAM_MOMENTS
     update = staticmethod(fused_lamb_update)
+
+    def elementwise(self, name):
+        return False
 
     def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
         super().__init__(lr, weight_decay, beta1=float(b1), beta2=float(b2),
@@ -266,6 +337,176 @@ class FusedAdagrad(_Fused):
 
     def _leaf_kwargs(self, lr):
         return dict(self.hyper, lr=lr)
+
+# --------------------------------------------------------------------- #
+# Muon (optax.contrib.muon)
+# --------------------------------------------------------------------- #
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+NS_STEPS = 5
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (optax holds its coefficients there)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def orthogonalize_via_newton_schulz(x: torch.Tensor,
+                                    coeffs=NS_COEFFS, steps: int = NS_STEPS,
+                                    eps: float = 1e-8) -> torch.Tensor:
+    """optax's ``orthogonalize_via_newton_schulz`` of one float32 matrix:
+    a tall matrix is transposed first; ``x / (‖x‖_F + eps)``, then
+    ``steps`` quintic iterations ``c0·x + (c1·A + (c2·A) @ A) @ x`` with
+    ``A = x @ xᵀ``, in optax's order, through ``torch.matmul`` (cuBLAS on
+    the card: the JAX package computes these in XLA dots). → a new
+    tensor of ``x``'s shape."""
+    c0, c1, c2 = (_f32(c) for c in coeffs)
+    transposed = x.shape[0] > x.shape[1]
+    if transposed:
+        x = x.T
+    x = x / (torch.linalg.vector_norm(x) + eps)
+    for _ in range(steps):
+        a = x @ x.T
+        b = c1 * a + (c2 * a) @ a
+        x = c0 * x + b @ x
+    return x.T if transposed else x
+
+
+def _corrected(t: torch.Tensor, beta: float, count: int) -> torch.Tensor:
+    """optax ``bias_correction``: ``t / (1 - beta**count)``, the divisor
+    in float32."""
+    bc = 1.0 - torch.tensor(beta, dtype=torch.float32) ** count
+    return t / bc.to(t.device)
+
+
+class Muon(_Optimizer):
+    """``optax.contrib.muon(lr)`` with optax 0.2.6's defaults, as the JAX
+    factory builds it (only ``lr`` is passed): optax's label rule sends a
+    leaf with ``ndim == 2`` to Muon (β 0.95, Nesterov, Newton–Schulz
+    ``NS_COEFFS`` × ``NS_STEPS``, eps 1e-8, the update scaled by
+    ``sqrt(max(1, cols/rows))``) and every other leaf to ``adamw(b1 0.9,
+    b2 0.999, eps 1e-8, weight_decay 0, nesterov=True)``; weight decay 0
+    on both. In the stacked layout the ``[L, D, F]`` kernels are 3-D and
+    take the Adam branch, while the ``[L, D]`` norm scales, ``embed`` and
+    ``lm_head`` are 2-D and are orthogonalised as whole matrices (the
+    reference's rule; upstream Muon orthogonalises each layer's
+    matrices). State names: Muon's momentum is ``exp_avg``; the Adam
+    branch keeps ``exp_avg`` and ``exp_avg_sq``, the names the universal
+    layout gives optax's ``mu``/``nu``."""
+
+    def __init__(self, lr, beta=0.95, eps=1e-8, b1=0.9, b2=0.999,
+                 coeffs=NS_COEFFS, steps=NS_STEPS):
+        super().__init__(lr, 0.0)
+        self.beta, self.eps = float(beta), float(eps)
+        self.b1, self.b2 = float(b1), float(b2)
+        self.coeffs, self.steps = tuple(coeffs), int(steps)
+
+    def is_matrix(self, name: str) -> bool:
+        return len(self.shapes[name]) == 2
+
+    def leaf_state_names(self, name):
+        return ("exp_avg",) if self.is_matrix(name) else _ADAM_MOMENTS
+
+    def elementwise(self, name):
+        return not self.is_matrix(name)
+
+    def update_leaf(self, p, g, state, lr):
+        t = self.count + 1
+        if p.ndim == 2:
+            (m,) = state
+            b = self.beta
+            m.copy_((1.0 - b) * g + b * m)
+            m_hat = b * _corrected(m, b, t + 1) + \
+                (1.0 - b) * _corrected(g, b, t)
+            u = orthogonalize_via_newton_schulz(m_hat, self.coeffs,
+                                                self.steps, self.eps)
+            factor = torch.tensor(max(1.0, p.shape[1] / p.shape[0]),
+                                  dtype=torch.float32)
+            u = float(factor.sqrt()) * u
+        else:
+            m, v = state
+            b1, b2 = self.b1, self.b2
+            m.copy_((1.0 - b1) * g + b1 * m)
+            v.copy_((1.0 - b2) * (g * g) + b2 * v)
+            m_hat = b1 * _corrected(m, b1, t + 1) + \
+                (1.0 - b1) * _corrected(g, b1, t)
+            u = m_hat / (_corrected(v, b2, t).sqrt() + self.eps)
+        p.add_(u, alpha=-lr)
+
+
+# --------------------------------------------------------------------- #
+# A client torch.optim optimizer
+# --------------------------------------------------------------------- #
+class ClientOptimizer:
+    """A client's ``torch.optim.Optimizer``, built by its factory
+    ``factory(masters) -> Optimizer`` over the engine's float32 masters
+    (a list in parameter order): an optimizer built over the model's own
+    tensors would update copies the engine never reads.
+
+    :meth:`step` sets each master's ``.grad`` to the engine's unscaled,
+    clipped and cleaned gradient and calls ``optimizer.step()``; with a
+    ``schedule`` (the config's scheduler) every param group's ``lr`` is
+    ``schedule(count)`` first, else the client's own lr stands. Its state
+    is torch.optim's per-parameter ``state``; :meth:`named_state` gives
+    its tensors by their keys (``exp_avg``/``exp_avg_sq`` for the Adam
+    family, the universal layout's names; other keys as torch.optim names
+    them)."""
+
+    def __init__(self, factory: Callable[[Iterable[torch.Tensor]], Any],
+                 schedule: Optional[Callable[[int], float]] = None):
+        if isinstance(factory, torch.optim.Optimizer) or not callable(factory):
+            raise TypeError(
+                "a client optimizer is a factory f(params) -> "
+                "torch.optim.Optimizer that the engine calls over its "
+                "float32 masters, not an optimizer instance (one built "
+                "over the model's tensors would update copies)")
+        self.factory = factory
+        self.schedule = schedule
+        self.count = 0
+        self.optimizer = None
+        self.params: Dict[str, torch.Tensor] = {}
+
+    def init(self, params: Dict[str, torch.Tensor]) -> None:
+        self.params = params
+        self.optimizer = self.factory(list(params.values()))
+        if not isinstance(self.optimizer, torch.optim.Optimizer):
+            raise TypeError(f"the client factory returned "
+                            f"{type(self.optimizer).__name__}, not a "
+                            f"torch.optim.Optimizer")
+
+    def current_lr(self) -> float:
+        if self.schedule is not None:
+            return float(self.schedule(self.count))
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor],
+             grads: Dict[str, torch.Tensor]) -> None:
+        for name, p in params.items():
+            p.grad = grads[name]
+        if self.schedule is not None:
+            lr = self.current_lr()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        self.optimizer.step()
+        self.count += 1
+
+    def named_state(self, name: str) -> Dict[str, torch.Tensor]:
+        state = self.optimizer.state.get(self.params[name], {})
+        return {k: v for k, v in state.items()
+                if isinstance(v, torch.Tensor)}
+
+    def load_named_state(self, name: str, rec: Dict[str, Any]) -> Set[str]:
+        """torch.optim's ``load_state_dict`` placement: ``step`` stays a
+        float32 host tensor, every other leaf goes to the master's
+        device. → nothing is absent (the record defines the state)."""
+        p = self.params[name]
+        state = self.optimizer.state[p]
+        for key, value in rec.items():
+            if key == "param":
+                continue
+            state[key] = value.to(torch.float32).clone() if key == "step" \
+                else value.to(p.device).clone()
+        return set()
 
 
 def build_optimizer(opt_type: str, params: Dict[str, Any],
@@ -299,6 +540,8 @@ def build_optimizer(opt_type: str, params: Dict[str, Any],
         "fusedlion": lambda: FusedLion(lr, lion_b1, lion_b2, wd),
         "fusedadagrad": lambda: FusedAdagrad(
             lr, params.get("eps", 1e-10), wd),
+        # optax.contrib.muon(lr): the JAX factory passes lr only
+        "muon": lambda: Muon(lr),
     }
     if name not in constructors:
         raise ValueError(f"unknown optimizer {opt_type!r}; supported: "

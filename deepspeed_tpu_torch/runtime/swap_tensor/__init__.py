@@ -1,4 +1,6 @@
 """Host-memory tiers of the port (counterpart of
 ``deepspeed_tpu/runtime/swap_tensor``): ``host_tier.HostPageTier``, the
-host store of spilled KV pages. The optimizer's host offload
-(``HostOffloadPrefetcher``) and the parameter swapper are ROADMAP M6."""
+host store of spilled KV pages, and ``HostOffloadPrefetcher``;
+``streamed_update.StreamedUpdate``, the optimizer update over state in
+host memory; ``partitioned_param_swapper.AsyncTensorSwapper``, tensors
+swapped to files."""

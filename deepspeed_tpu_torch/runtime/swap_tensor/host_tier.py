@@ -18,8 +18,13 @@ materializing waits on that event (reading the buffer earlier would see
 stale rows), and a discarded pending transfer keeps its buffer alive until
 its event has completed. A CPU payload is copied at once, synchronously.
 
+:class:`HostOffloadPrefetcher` (``offload_optimizer.pipeline_read``)
+stages the host-resident optimizer state toward the device before the
+forward, through ``streamed_update.StreamedUpdate.stage``.
+
 Fault sites (``runtime/fault/injection.py``): ``host_alloc`` at buffer
-admission, ``kv_swap_out`` at the device-to-host issue.
+admission, ``kv_swap_out`` at the device-to-host issue,
+``offload_prefetch`` at the prefetcher's arm.
 """
 from __future__ import annotations
 
@@ -200,3 +205,39 @@ class HostPageTier:
 
 
 __all__ = ["HostPageTier"]
+
+
+class HostOffloadPrefetcher:
+    """Stages the host-resident optimizer state toward the device ahead
+    of the update (``offload_optimizer.pipeline_read``; the JAX engine
+    arms it before dispatching the step, ``engine.py:936-944``).
+
+    :meth:`arm` is called before the forward: it issues the host-to-device
+    copies of the first ring's worth of pieces on the streamed update's
+    copy stream, so that they land under the forward and backward. An
+    injected ``offload`` fault at the ``offload_prefetch`` site skips the
+    stage and counts a failure: the update then reads the host state
+    unstaged (the same bits, no overlap). Any other failure raises."""
+
+    def __init__(self) -> None:
+        self.arms = 0
+        self.failures = 0
+        self.bytes_staged = 0
+
+    def arm(self, streamed) -> int:
+        """Stage ``streamed``'s first pieces. → the bytes staged."""
+        try:
+            injection.inject("offload_prefetch")
+        except injection.InjectedOffloadFailure:
+            self.failures += 1
+            logger.warning("offload prefetch: injected failure, the update "
+                           "will read the host state unstaged")
+            return 0
+        self.arms += 1
+        staged = streamed.stage()
+        self.bytes_staged += staged
+        return staged
+
+    def stats(self) -> Dict[str, int]:
+        return {"arms": self.arms, "failures": self.failures,
+                "bytes_staged": self.bytes_staged}

@@ -90,11 +90,26 @@ def test_a_config_given_twice_is_refused_alike(tmp_path):
 
 
 def test_client_optimizer_and_data_are_refused():
-    with pytest.raises(NotImplementedError, match="Queue 3.2"):
+    """A client optimizer is a factory over the engine's masters (an
+    optimizer instance is refused: it would update copies); a factory's
+    torch.optim optimizer trains. The engine's data loader is M10."""
+    with pytest.raises(TypeError, match="factory"):
         deepspeed_tpu_torch.initialize(
             model=_port_model(), optimizer=torch.optim.SGD(
                 [torch.zeros(1, requires_grad=True)], lr=0.1),
             config=CONFIG, device="cpu")
+    engine, opt, _, _ = deepspeed_tpu_torch.initialize(
+        model=_port_model(), config=CONFIG, device="cpu",
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1))
+    assert isinstance(opt.optimizer, torch.optim.SGD)
+    assert opt.optimizer.param_groups[0]["params"] == \
+        list(engine.params.values())
+    before = {k: v.detach().clone() for k, v in engine.params.items()}
+    tokens = torch.zeros(4, 16, dtype=torch.long)
+    engine.train_batch({"input_ids": tokens})
+    assert opt.count == engine.global_steps == 1
+    assert any(not torch.equal(before[k], v)
+               for k, v in engine.params.items())
     with pytest.raises(NotImplementedError, match="M10"):
         deepspeed_tpu_torch.initialize(model=_port_model(), config=CONFIG,
                                        training_data=[1, 2], device="cpu")

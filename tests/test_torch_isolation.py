@@ -84,15 +84,23 @@ SERVING_TIER_MODULES = (
     "profiling/serving_roofline.py",
     "moe/sharded_moe.py",
     "moe/layer.py",
+    "runtime/zero/config.py",
+    "runtime/zero/twin_flow.py",
+    "runtime/swap_tensor/streamed_update.py",
+    "runtime/swap_tensor/partitioned_param_swapper.py",
+    "runtime/swap_tensor/pinned.py",
+    "runtime/optimizer.py",
 )
 
 
 @pytest.mark.parametrize("rel", SERVING_TIER_MODULES)
 def test_serving_tier_modules_stand_alone(rel):
     """The prefix cache, page heat, host tier, KV swap, the fault
-    injector, the lifecycle scheduler, its HTTP server, the rooflines and
-    the MoE modules import neither JAX nor the JAX package, not even its
-    stdlib-only ``injection.py``: the port keeps its own copies."""
+    injector, the lifecycle scheduler, its HTTP server, the rooflines,
+    the MoE modules, ZeRO's config and Twin-Flow, the streamed update, the
+    swapper and the optimizers (Muon among them, not optax's) import
+    neither JAX nor the JAX package, not even its stdlib-only
+    ``injection.py``: the port keeps its own copies."""
     path = os.path.join(PKG_DIR, rel)
     mods = list(_imports(path))
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",

@@ -135,6 +135,29 @@ def _facade_checks(rank):
     return res
 
 
+def _zero_stage_refusals(rank):
+    """What ``initialize`` says to each ZeRO stage >= 1 on this world."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import CausalLM, TransformerConfig
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig.tiny()
+    model = CausalLM(cfg, init_params(cfg, torch.Generator(), device="cpu"))
+    out = []
+    for zero in ({"stage": 1}, {"stage": 3, "offload_optimizer": {
+            "device": "cpu"}}):
+        try:
+            deepspeed_tpu_torch.initialize(
+                model=model, config={"train_micro_batch_size_per_gpu": 1,
+                                     "zero_optimization": zero},
+                device="cpu")
+            out.append(None)
+        except NotImplementedError as e:
+            out.append(str(e))
+    comm.barrier()                   # no rank leaves before the mesh is up
+    return out
+
+
 def _fail_on_rank_one(rank):
     if rank == 1:
         raise RuntimeError("planted failure")
@@ -213,6 +236,17 @@ def test_topology_refuses_what_is_not_ported():
     topo.reset_topology()
     assert topo.get_topology().dims["data"] == 1
     topo.reset_topology()
+
+
+def test_zero_stages_above_0_are_refused_on_a_world(tmp_path):
+    """Stages 1-3 run on one device; at world > 1 the engine refuses them,
+    naming ZeRO sharding's item."""
+    res = run_local_world(_zero_stage_refusals, 2, store_dir=str(tmp_path))
+    for msgs in res:
+        assert len(msgs) == 2
+        for msg in msgs:
+            assert msg is not None and "ROADMAP M6" in msg and \
+                "world of 2" in msg, msg
 
 
 def test_a_failing_rank_fails_the_world(tmp_path):
